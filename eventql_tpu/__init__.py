@@ -1,7 +1,7 @@
-"""eventql_tpu — a TPU-native vectorized SQL query-execution engine.
+"""eventql_tpu — a vectorized SQL query-execution engine on JAX.
 
 A from-scratch reimplementation of the capability set of EventQL's csql
-engine (reference: /root/reference, C++), redesigned TPU-first:
+engine (the reference implementation, C++), redesigned for an accelerator:
 
 * expressions compile to columnar JAX/XLA programs instead of a
   row-at-a-time stack VM (reference: sql/runtime/vm.cc:107-157)

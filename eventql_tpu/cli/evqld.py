@@ -1,7 +1,7 @@
 """Server binary (reference: evqld.cc).
 
 Starts the HTTP API listener and the native binary-protocol listener
-over a shared table service — the TPU-native equivalent of
+over a shared table service — this engine's equivalent of
 `evqld --standalone`. With --config_dir/--server_name the process
 registers itself in the standalone cluster registry
 (config/config_directory.py) and routes SQL through the cluster
@@ -18,7 +18,51 @@ import sys
 import time
 
 
-def main(argv=None):
+class Daemon:
+    """The running server's parts; stop() shuts them down in order."""
+
+    def __init__(self, **parts):
+        self.__dict__.update(parts)
+
+    @property
+    def http_port(self) -> int:
+        return self.server.port
+
+    @property
+    def native_port(self) -> int:
+        return self.native.port
+
+    def stop(self):
+        args = self.args
+        if self.cdir is not None:
+            from eventql_tpu.config.config_directory import (
+                SERVER_DOWN,
+                ServerConfig,
+            )
+
+            self.cdir.update_server_config(
+                ServerConfig(
+                    server_id=args.server_name,
+                    server_addr=f"{self.host}:{self.listener.port}",
+                    server_status=SERVER_DOWN,
+                )
+            )
+        for part in (
+            self.autosplit, self.meta_repl, self.leader, self.monitor,
+            self.repl_worker, self.statsd_agent,
+        ):
+            if part is not None:
+                part.stop()
+        if args.datadir:
+            self.table_service.stop_compaction_worker()
+            self.server.table_service.commit_all()
+        self.listener.stop()
+        self.native.stop()
+        self.server.stop()
+
+
+def serve(argv=None) -> Daemon:
+    """Start evqld's listeners in this process and return at once."""
     ap = argparse.ArgumentParser(prog="evqld", description="eventql_tpu server")
     ap.add_argument("--listen_http", default="127.0.0.1:9175")
     ap.add_argument(
@@ -213,44 +257,27 @@ def main(argv=None):
             threshold_rows=args.partition_split_threshold_rows,
         ).start()
 
-    print(
-        f"eventql_tpu server listening on http://{host}:{server.port}"
-        f" native://{nhost}:{native.port}"
+    return Daemon(
+        args=args, host=host, native_host=nhost, server=server, native=native,
+        listener=listener, table_service=table_service, cdir=cdir,
+        autosplit=autosplit, meta_repl=meta_repl, leader=leader,
+        monitor=monitor, repl_worker=repl_worker,
+        statsd_agent=statsd_agent,
     )
 
+
+def main(argv=None):
+    daemon = serve(argv)
+    print(
+        f"eventql_tpu server listening on http://{daemon.host}:"
+        f"{daemon.http_port} native://{daemon.native_host}:{daemon.native_port}"
+    )
     stop = []
     signal.signal(signal.SIGINT, lambda *a: stop.append(1))
     signal.signal(signal.SIGTERM, lambda *a: stop.append(1))
     while not stop:
         time.sleep(0.2)
-    if cdir is not None:
-        from eventql_tpu.config.config_directory import SERVER_DOWN, ServerConfig
-
-        cdir.update_server_config(
-            ServerConfig(
-                server_id=args.server_name,
-                server_addr=f"{host}:{listener.port}",
-                server_status=SERVER_DOWN,
-            )
-        )
-    if autosplit is not None:
-        autosplit.stop()
-    if meta_repl is not None:
-        meta_repl.stop()
-    if leader is not None:
-        leader.stop()
-    if monitor is not None:
-        monitor.stop()
-    if repl_worker is not None:
-        repl_worker.stop()
-    if statsd_agent is not None:
-        statsd_agent.stop()
-    if args.datadir:
-        table_service.stop_compaction_worker()
-        server.table_service.commit_all()
-    listener.stop()
-    native.stop()
-    server.stop()
+    daemon.stop()
     return 0
 
 

@@ -10,7 +10,6 @@ from __future__ import annotations
 
 import ctypes
 import os
-import subprocess
 from typing import List, Optional, Tuple
 
 _NATIVE_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "native")
@@ -21,18 +20,10 @@ def _load() -> Optional[ctypes.CDLL]:
     global _LIB
     if _LIB is not None:
         return _LIB
+    from eventql_tpu.columnar.native import build_native
+
     path = os.path.abspath(os.path.join(_NATIVE_DIR, "build", "libevql_client.so"))
-    if not os.path.exists(path):
-        try:
-            subprocess.run(
-                ["make", "-C", os.path.abspath(_NATIVE_DIR)],
-                check=True,
-                capture_output=True,
-                timeout=120,
-            )
-        except (subprocess.SubprocessError, FileNotFoundError):
-            return None
-    if not os.path.exists(path):
+    if not build_native("libevql_client.so"):
         return None
     lib = ctypes.CDLL(path)
     lib.evql_client_init.restype = ctypes.c_void_p

@@ -25,6 +25,32 @@ _lib = None
 _load_failed = False
 
 
+def build_native(target: str) -> bool:
+    """Build native/build/<target> (and the rest of native/) with make
+    unless it exists. Concurrent processes (test workers, servers)
+    serialize on a file lock, so one runs make and the others find its
+    output. Returns whether the target exists afterwards."""
+    import fcntl
+
+    native_dir = os.path.abspath(_NATIVE_DIR)
+    path = os.path.join(native_dir, "build", target)
+    if os.path.exists(path):
+        return True
+    with open(os.path.join(native_dir, ".build.lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not os.path.exists(path):
+            try:
+                subprocess.run(
+                    ["make", "-C", native_dir],
+                    check=True,
+                    capture_output=True,
+                    timeout=300,
+                )
+            except (subprocess.SubprocessError, FileNotFoundError):
+                pass
+    return os.path.exists(path)
+
+
 def _try_load() -> Optional[ctypes.CDLL]:
     global _lib, _load_failed
     if _lib is not None or _load_failed:
@@ -32,17 +58,9 @@ def _try_load() -> Optional[ctypes.CDLL]:
     if os.environ.get("EVENTQL_TPU_NO_NATIVE") == "1":
         _load_failed = True
         return None
-    if not os.path.exists(_SO_PATH):
-        try:
-            subprocess.run(
-                ["make", "-C", os.path.abspath(_NATIVE_DIR)],
-                check=True,
-                capture_output=True,
-                timeout=120,
-            )
-        except Exception:
-            _load_failed = True
-            return None
+    if not build_native("libeventql_native.so"):
+        _load_failed = True
+        return None
     try:
         lib = ctypes.CDLL(_SO_PATH)
     except OSError:

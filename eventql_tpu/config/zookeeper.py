@@ -3,7 +3,7 @@
 The reference's cluster backend is ZooKeeper via the C client library
 (reference: config/config_directory_zookeeper.cc; vendored client in
 deps/3rdparty/zookeeper). This module speaks the real ZooKeeper (jute)
-wire protocol, so the TPU build's client can talk to a stock ZooKeeper
+wire protocol, so this engine's client can talk to a stock ZooKeeper
 ensemble — and, because the build image ships no ZooKeeper, it also
 provides an embedded single-node server implementing the subset the
 config directory needs:

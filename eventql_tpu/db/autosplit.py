@@ -5,7 +5,7 @@ partition against split thresholds (db/partition_writer.cc:459-487;
 constants 512 MB / 2,000,000 rows at :64-65) and commitSplit issues a
 METAOP_SPLIT_PARTITION metadata transaction carrying the partition's
 midpoint key (:538-589); the leader's rebalance pass later finalizes
-the split. In the TPU build the standalone registry applies splits
+the split. Here the standalone registry applies splits
 immediately (replicas keep the full keyrange; splits change query
 scoping and future write routing — see COMPARISON.md), so automatic
 splitting is a background pass: measure per-partition row counts on the

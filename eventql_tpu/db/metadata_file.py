@@ -27,7 +27,7 @@ targets it should push to (reference: db/partition_discovery.cc,
 lifecycle doc doc/internals/partitioning.txt §3).
 
 This file is host-side control plane: pure Python data + JSON
-serialization (the TPU build ships JSON over its native protocol
+serialization (this engine ships JSON over its native protocol
 instead of the reference's hand-rolled binary encoding).
 """
 

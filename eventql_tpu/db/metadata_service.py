@@ -7,7 +7,7 @@ compare-and-swap (reference: db/metadata_store.cc on-disk txn files,
 db/metadata_service.cc RPC surface, db/metadata_coordinator.cc:43-140
 CAS commit + majority store, doc/internals/partitioning.txt §5).
 
-TPU-build layout: every txn file is JSON at
+Layout here: every txn file is JSON at
 ``<datadir>/metadata/<db>/<table>/<txnid>.json``. The coordinator
 fans METAOP requests to each metadata server — in-process when the
 server is local, else via the native protocol's META_* ops — verifies

@@ -85,7 +85,7 @@ class MemoryTable:
         # partition_writer.cc:105-199 + PartitionArena's version map)
         self._arena_index: Dict[bytes, int] = {}
         # columnar arena batches (flat tables only): whole Relations
-        # appended by the native batch-insert path — the TPU-native
+        # appended by the native batch-insert path — this engine's
         # arena representation (the reference's analog is the
         # column-shredded ShreddedRecordList batches its insert path
         # groups records into, db/table_service.cc:883-897)

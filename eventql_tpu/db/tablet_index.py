@@ -12,7 +12,7 @@ records (replayed replication pushes, repeated client retries) drop at
 WRITE time instead of accumulating dead rows until compaction
 (reference: partition_writer.cc:105-199).
 
-The TPU-native twist: lookups are vectorized — a whole batch of record
+The twist here: lookups are vectorized — a whole batch of record
 ids resolves with one numpy searchsorted over the 8-byte id prefix plus
 a short verify scan, instead of the reference's per-record binary
 search."""

@@ -1,7 +1,7 @@
 """JAX columnar expression compiler — the device compute path.
 
 Compiles a ValueExpressionNode tree into a traced jax.numpy program
-over device column arrays. This is the TPU replacement for the
+over device column arrays. This is the device replacement for the
 reference's per-row stack VM (reference: sql/runtime/vm.cc:107-157):
 one XLA fusion evaluates the expression for the whole column.
 

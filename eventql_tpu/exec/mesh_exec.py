@@ -1,9 +1,9 @@
-"""SQL execution on a multi-device mesh (the ICI tier, reachable from SQL).
+"""SQL execution on a multi-device mesh (the mesh tier, reachable from SQL).
 
 `try_execute_mesh_groupby` compiles Scan→Filter→GroupBy into ONE XLA
 program over the provider's `jax.sharding.Mesh`: per-shard columnar
 expression eval + partial aggregation (shard_map), an all-gather of the
-fixed-width partial group tables over ICI, and a replicated merge —
+fixed-width partial group tables between devices, and a replicated merge —
 the collective replaces the reference's QUERY_PARTIALAGGR RPC fan-out
 and coordinator accumulator merge (reference:
 server/sql/scheduler.cc:55-264, sql/statements/select/groupby.cc:
@@ -47,7 +47,7 @@ def _mesh_distinct_counts(mask, keys, dv, axis, nd, op):
     shard_map trace: locally deduplicate the (keys..., value) pairs
     (one sort — the per-shard analog of the reference's hash-set
     accumulator, aggregate.cc:74-120), all-gather the deduplicated
-    pair tables over ICI, and recount replicated. Group order equals
+    pair tables across the mesh, and recount replicated. Group order equals
     masked_grouped_aggregate's (ascending key), so callers align the
     output positionally with their merged group table. Shared by the
     groupby and join mesh routes (review finding: two diverging copies
@@ -126,7 +126,7 @@ def try_execute_mesh_groupby(
     partial=True returns a GroupByPartial (operators.GroupByPartial —
     the mergeable accumulator-state form the cluster tier ships as
     QUERY_PARTIALAGGR results) instead of a final Relation: this is
-    the TCP-over-ICI composition — a cluster worker aggregates its
+    the TCP-over-mesh composition — a cluster worker aggregates its
     local shard ON ITS MESH and only O(groups) states cross hosts
     (reference: PartialGroupByExpression feeding GroupByMerge,
     groupby.cc:438-714). count_distinct partials need the distinct
@@ -304,7 +304,7 @@ def try_execute_mesh_groupby(
             valid_l = jnp.arange(local_n, dtype=jnp.int64) < ng_l
             first_global = g0 + first_local
 
-            # exchange fixed-width partial tables over ICI
+            # exchange fixed-width partial tables between devices
             from eventql_tpu.parallel.distributed import _xch_all_gather
 
             gk_all = tuple(
@@ -677,7 +677,7 @@ def _mesh_keys_in_shard(specs, scan_cols, null_ranks, hostkey_planes,
 def try_execute_mesh_scan_topk(node: qn.LimitNode, txn) -> Optional[Relation]:
     """SELECT ... [WHERE] ORDER BY ... LIMIT k over the mesh: per-shard
     top-k of the host-order key, an O(k*P) candidate all-gather over
-    ICI, and a replicated tie-exact re-selection — the exchange is
+    the mesh, and a replicated tie-exact re-selection — the exchange is
     independent of table size (the reference streams EVERY row to the
     coordinator and std::sorts, orderby.cc:58-168). Only the k winning
     global row ids leave the device; the host materializes those rows.
@@ -965,7 +965,7 @@ def try_execute_mesh_join_groupby(node: qn.GroupByNode, txn):
             fact_keys = scan_cols[bref[1]].data.astype(jnp.uint64)
             # broadcast probe: binary search into the replicated sorted
             # dim keys (always-correct tier; the compare kernel is the
-            # single-chip TPU fast path)
+            # single-device fast path)
             sdk, dperm = build_side(dimk)
             db_sorted = dimb.astype(jnp.int32)[dperm]
             pk = sortable_u64(fact_keys)

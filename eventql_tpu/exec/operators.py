@@ -10,7 +10,6 @@ loops (see SURVEY.md Appendix A).
 
 from __future__ import annotations
 
-import os
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
 
@@ -18,6 +17,7 @@ import numpy as np
 
 from eventql_tpu.core.errors import RuntimeError_
 from eventql_tpu.core.types import SType, SValue
+from eventql_tpu.exec.backend import device_routes_enabled
 from eventql_tpu.exec.relation import Column, Relation, dtype_for
 from eventql_tpu.exec.vector_eval import EvalContext, evaluate_vector, _zero_invalid
 from eventql_tpu.plan import nodes as qn
@@ -768,7 +768,7 @@ def _exec_group_by_impl(node: qn.GroupByNode, txn) -> Relation:
     from eventql_tpu.parallel.mesh_provider import MeshTableProvider
 
     if isinstance(txn.tables, MeshTableProvider):
-        # ICI tier: the whole scatter/gather compiles into one XLA
+        # mesh tier: the whole scatter/gather compiles into one XLA
         # program over the provider's device mesh (exec/mesh_exec.py);
         # None → shape not mesh-routable, host engine serves it
         from eventql_tpu.exec.mesh_exec import (
@@ -784,24 +784,21 @@ def _exec_group_by_impl(node: qn.GroupByNode, txn) -> Relation:
         if result is not None:
             return result
 
-    if os.environ.get("EVENTQL_TPU_DEVICE") == "1":
+    if device_routes_enabled():
         from eventql_tpu.exec.device_exec import (
             device_plan_eligible,
             execute_device_groupby,
             try_execute_device_join_groupby,
-            try_execute_pallas_string_groupby,
+            try_execute_bounded_groupby,
         )
 
-        result = try_execute_pallas_string_groupby(node, txn)
-        if result is not None:
-            return result
-        result = try_execute_device_join_groupby(node, txn)
-        if result is not None:
-            return result
-        if device_plan_eligible(node):
+        result = try_execute_bounded_groupby(node, txn)
+        if result is None:
+            result = try_execute_device_join_groupby(node, txn)
+        if result is None and device_plan_eligible(node):
             result = execute_device_groupby(node, txn)
-            if result is not None:
-                return result
+        if result is not None:
+            return _device_ran(result)
 
     child = execute_node(node.table, txn)
     n = child.num_rows
@@ -834,6 +831,14 @@ def _exec_group_by_impl(node: qn.GroupByNode, txn) -> Relation:
 # ---------------------------------------------------------------------------
 # order by / limit
 # ---------------------------------------------------------------------------
+
+
+def _device_ran(result: Relation) -> Relation:
+    """Count a plan node answered by a single-device route."""
+    from eventql_tpu.utils.stats import evqld_stats
+
+    evqld_stats().device_route_runs.incr()
+    return result
 
 
 def _sort_key_arrays(col: Column) -> np.ndarray:
@@ -892,14 +897,14 @@ def _exec_order_by(node: qn.OrderByNode, txn) -> Relation:
         if result is not None:
             return result
 
-    if os.environ.get("EVENTQL_TPU_DEVICE") == "1" and isinstance(
+    if device_routes_enabled() and isinstance(
         node.table, qn.SequentialScanNode
     ):
         from eventql_tpu.exec.device_exec import try_execute_device_scan_order
 
         result = try_execute_device_scan_order(node, txn)
         if result is not None:
-            return result
+            return _device_ran(result)
 
     child = execute_node(node.table, txn)
     return _order_relation(child, node.sort_specs)
@@ -956,14 +961,14 @@ def _exec_limit(node: qn.LimitNode, txn) -> Relation:
         if result is not None:
             return result
 
-    if os.environ.get("EVENTQL_TPU_DEVICE") == "1" and isinstance(
+    if device_routes_enabled() and isinstance(
         node.table, qn.OrderByNode
     ):
         from eventql_tpu.exec.device_exec import try_execute_device_scan_topk
 
         result = try_execute_device_scan_topk(node, txn)
         if result is not None:
-            return result
+            return _device_ran(result)
 
     child = execute_node(node.table, txn)
     lo = node.offset

@@ -75,7 +75,7 @@ class Transaction:
         # sql/scheduler/execution_context.h:30-54)
         self.exec_ctx = ExecutionContext()
         # per-operator timing (survey §5: the reference has no tracer —
-        # this is the TPU build's addition): list of
+        # this is this engine's addition): list of
         # (operator, depth, wall_seconds, output_rows) tuples, enabled
         # by passing trace=[] or EVENTQL_TRACE=1
         import os as _os
@@ -219,6 +219,9 @@ class QueryPlan:
 
 class Runtime:
     def __init__(self, registry=DEFAULT_REGISTRY, plan_cache: Optional[PlanCache] = None):
+        from eventql_tpu.exec.backend import install_compile_cache
+
+        install_compile_cache()
         self.registry = registry
         self.plan_cache = plan_cache
 

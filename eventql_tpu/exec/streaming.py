@@ -9,7 +9,7 @@ segment/chunk-sized Relations (LSMTable.stream_chunks holds one
 segment at a time), each row-local operator stage — scan filter,
 projection, subquery select, LIMIT/OFFSET — applies vectorized per
 chunk, and the transports format + frame rows chunk by chunk. The
-vectorized chunk passes keep the TPU/numpy batch shape while the
+vectorized chunk passes keep the device/numpy batch shape while the
 generator chain bounds the peak footprint.
 
 Only row-local plan shapes stream (filter/map/limit); blocking

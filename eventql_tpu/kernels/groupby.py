@@ -1,15 +1,14 @@
-"""Device grouped aggregation (XLA path).
+"""Device grouped aggregation (sort-based, unbounded keys).
 
 The reference's GroupBy is a per-row hash-map interpreter loop
 (reference: sql/statements/select/groupby.cc:69-219). Here grouping is
 a whole-column device program: lexicographic multi-key sort
-(jax.lax.sort — bitonic on TPU), segment-boundary detection, and
-segment reductions, all inside one jit. Shapes are static: aggregates
-are returned padded to `num_segments` groups with a group-count scalar.
+(jax.lax.sort), segment-boundary detection, and segment reductions, all
+inside one jit. Shapes are static: aggregates are returned padded to
+`num_segments` groups with a group-count scalar.
 
-This is the correctness-grade device kernel; the Pallas hash-aggregate
-(eventql_tpu.kernels.pallas_groupby) is the speed-of-light path for
-low-cardinality keys.
+Keys with a small static bound take the one-pass scatter form instead
+(eventql_tpu.kernels.bucket_agg).
 """
 
 from __future__ import annotations
@@ -23,40 +22,13 @@ import jax.numpy as jnp
 U64_SIGN = jnp.uint64(1 << 63)
 
 
-def _sortable_u32_from_f32(x32: jax.Array) -> jax.Array:
-    """IEEE-754 total-order trick on float32 (32-bit bitcasts compile
-    everywhere, unlike 64-bit ones on TPU)."""
-    bits = jax.lax.bitcast_convert_type(x32, jnp.uint32)
-    sign = bits >> jnp.uint32(31)
-    return jnp.where(sign == 1, ~bits, bits ^ jnp.uint32(1 << 31))
-
-
 def f64_sort_bits(data: jax.Array) -> jax.Array:
     """float64 -> uint64 keys whose unsigned ascending order equals the
-    float order (and equality <-> key equality), for sort/group keys.
-
-    On CPU this is the classic IEEE total-order bit trick. On TPU,
-    float64 is emulated as a float-float (f32 hi + f32 residual) pair —
-    the f64 bit pattern never exists on device and any 64-bit
-    bitcast-convert is unimplemented in the X64-rewrite pass — so the
-    key is built from the emulation's own parts: round to f32 (hi),
-    take the residual (lo), and pack their 32-bit total-order keys as
-    (k32(hi) << 32) | k32(lo). Rounding is monotone and the residual
-    orders values sharing a hi, so key order equals FF value order;
-    precision beyond the ~49-bit FF mantissa is the device's own
-    arithmetic precision, not an artifact of the key."""
-    if jax.default_backend() == "cpu":
-        words = jax.lax.bitcast_convert_type(data, jnp.uint32)
-        lo = words[..., 0].astype(jnp.uint64)
-        hi = words[..., 1].astype(jnp.uint64)
-        bits = (hi << jnp.uint64(32)) | lo
-        sign = bits >> jnp.uint64(63)
-        return jnp.where(sign == 1, ~bits, bits ^ U64_SIGN)
-    hi = data.astype(jnp.float32)
-    lo = (data - hi.astype(jnp.float64)).astype(jnp.float32)
-    khi = _sortable_u32_from_f32(hi).astype(jnp.uint64)
-    klo = _sortable_u32_from_f32(lo).astype(jnp.uint64)
-    return (khi << jnp.uint64(32)) | klo
+    float order (and equality <-> key equality), for sort/group keys:
+    the IEEE-754 total-order bit trick on the exact 64-bit pattern."""
+    bits = jax.lax.bitcast_convert_type(data, jnp.uint64)
+    sign = bits >> jnp.uint64(63)
+    return jnp.where(sign == 1, ~bits, bits ^ U64_SIGN)
 
 
 def sortable_u64(data: jax.Array, descending: bool = False) -> jax.Array:
@@ -164,64 +136,11 @@ def grouped_aggregate(
     return group_keys, tuple(outs), first_index, num_groups
 
 
-@functools.partial(jax.jit, static_argnames=("agg_kinds", "num_buckets"))
-def direct_grouped_aggregate(
-    mask: jax.Array,
-    keys: jax.Array,
-    value_arrays: Tuple[jax.Array, ...],
-    agg_kinds: Tuple[str, ...],
-    num_buckets: int,
-):
-    """One-pass scatter aggregation for bounded integer keys
-    (0 <= key < num_buckets) — no sort. This is the fast path for
-    low-cardinality GROUP BY (dictionary-encoded strings, bucketed
-    timestamps): a single fused scan computes every aggregate.
-
-    Masked-out rows scatter to bucket `num_buckets` (dropped).
-    Returns (bucket_occupied, aggregates) padded to num_buckets.
-    """
-    n = keys.shape[0]
-    gid = jnp.where(mask, keys.astype(jnp.int32), num_buckets)
-    nb = num_buckets + 1
-
-    occupied = (
-        jax.ops.segment_sum(jnp.ones(n, jnp.int32), gid, num_segments=nb)[:-1]
-        > 0
-    )
-
-    outs = []
-    for vals, kind in zip(value_arrays, agg_kinds):
-        if kind == "count":
-            out = jax.ops.segment_sum(
-                jnp.ones(n, dtype=jnp.uint64), gid, num_segments=nb
-            )
-        elif kind == "sum":
-            out = jax.ops.segment_sum(vals, gid, num_segments=nb)
-        elif kind == "min":
-            out = jax.ops.segment_min(vals, gid, num_segments=nb)
-        elif kind == "max":
-            out = jax.ops.segment_max(vals, gid, num_segments=nb)
-        elif kind == "mean":
-            s = jax.ops.segment_sum(
-                vals.astype(jnp.float64), gid, num_segments=nb
-            )
-            c = jax.ops.segment_sum(jnp.ones(n, jnp.float64), gid, num_segments=nb)
-            out = s / c
-        else:
-            raise ValueError(f"unknown aggregate kind {kind}")
-        outs.append(out[:-1])
-
-    return occupied, tuple(outs)
-
-
 def _seg_scan(starts, vals, op):
     """Inclusive SEGMENTED scan over contiguous (sorted) segments:
     out[i] = op-fold of vals over [segment_start(i) .. i]. The
     (start-flag, value) combine is associative, so this lowers to
-    jax.lax.associative_scan — log2(n) full-width vector passes. The
-    scatter-free replacement for jax.ops.segment_*: XLA scatter
-    serializes on TPU (~0.005 Grows/s measured, PERF.md), which made
-    the segment-op formulation the whole route's bottleneck."""
+    jax.lax.associative_scan — log2(n) full-width vector passes."""
 
     def combine(a, b):
         af, av = a
@@ -255,14 +174,11 @@ def masked_grouped_aggregate(
     host-side compaction (the reference evaluates the predicate vector
     then re-scans: sql/runtime/vm.cc:231-272).
 
-    Scatter-free formulation (TPU has no per-lane scatter; XLA scatter
-    serializes at ~0.005 Grows/s): ONE multi-payload key sort carries
-    the mask/row-index/original-key/value streams (payload permute
-    beats per-array gather, PERF.md), per-group totals come from
-    inclusive segmented scans (associative_scan, log2 n passes), and a
-    single stable 1-bit partition sort compacts each group's
-    end-of-segment row — where every scan holds its group's total —
-    down to slot gid. ~50x the segment-op formulation at 4M rows."""
+    One multi-payload key sort carries the mask/row-index/original-key/
+    value streams, per-group totals come from prefix sums or inclusive
+    segmented scans (associative_scan, log2 n passes), and a single
+    stable 1-bit partition sort compacts each group's end-of-segment row
+    — where every scan holds its group's total — down to slot gid."""
     n = key_arrays[0].shape[0]
     # sentinel: all-ones keys sort last in unsigned order
     sentinel = jnp.uint64(0xFFFFFFFFFFFFFFFF)

@@ -2,15 +2,14 @@
 
 The reference materializes all rows and std::sorts them with compiled
 comparators (reference: sql/statements/select/orderby.cc:58-168). Here
-ORDER BY is a device multi-key sort over order-preserving uint64 keys
-(jax.lax.sort → bitonic network on TPU), and ORDER BY + LIMIT k uses
-jax.lax.top_k when a single key suffices.
+ORDER BY is a device multi-key sort over order-preserving unsigned keys
+(jax.lax.sort), and ORDER BY + LIMIT k a top-k over a single key.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Sequence, Tuple
+from typing import Tuple
 
 import jax
 import jax.numpy as jnp
@@ -22,10 +21,9 @@ from eventql_tpu.kernels.groupby import sortable_u64
 def order_permutation(sort_keys: Tuple[jax.Array, ...]) -> jax.Array:
     """Stable permutation ordering rows by the given pre-transformed
     unsigned key arrays (ascending unsigned order; callers apply
-    sortable_u64 with their descending flags, and may pass uint32 keys
-    where a static bound proves the u64 key fits — the bitonic sort is
-    operand-width bound, so narrow keys and the int32 payload are the
-    difference between the 0.21 and 0.33+ Grows/s tiers, PERF.md)."""
+    sortable_u64 with their descending flags, and may pass uint32 or
+    uint16 keys where a static bound proves the u64 key fits: narrower
+    keys move fewer bytes through the sort)."""
     n = sort_keys[0].shape[0]
     idx_dtype = jnp.int32 if n < (1 << 31) else jnp.int64
     iota = jnp.arange(n, dtype=idx_dtype)
@@ -46,111 +44,9 @@ def topk_permutation(sort_key: jax.Array, k: int) -> jax.Array:
     descending key order. For ORDER BY x DESC LIMIT k pass
     sortable_u64(x); for ORDER BY x ASC LIMIT k pass
     sortable_u64(x, descending=True) (the flip makes the smallest x the
-    largest key). Ties break toward the lowest row index.
-
-    Large inputs route through the histogram-threshold algorithm
-    (fast_topk_u64, 2.2 Grows/s measured at 100M rows) — XLA's top_k
-    partial sort runs ~0.2 Grows/s on 64-bit keys, i32 top_k 0.29, and
-    exact-mode approx_max_k 0.32; whole-array nonzero compaction is
-    scatter-bound at 0.014. The winning combination is two MXU
-    histogram levels for an exact 24-bit threshold plus the Pallas
-    block-skipping extractor (kernels/extract.py)."""
-    n = sort_key.shape[0]
+    largest key). Ties break toward the lowest row index."""
     if sort_key.dtype == jnp.uint16:
-        # u16 keys exist for the full-sort route's benefit; the
-        # histogram kernels speak u32/u64, so widen (free in-register)
+        # u16 keys exist for the full-sort route's benefit
         sort_key = sort_key.astype(jnp.uint32)
-    if n >= (1 << 22) and k <= 4096:
-        if sort_key.dtype == jnp.uint32:
-            return fast_topk_u32(sort_key, k)
-        return fast_topk_u64(sort_key, k)
     _, idx = jax.lax.top_k(sort_key, k)
     return idx.astype(jnp.int64)
-
-
-# histogram-threshold top-k ------------------------------------------------
-#
-# 1. histogram the top PREFIX_BITS of every key with the MXU
-#    hash-aggregate kernel (a count-only grouped aggregate)
-# 2. threshold: T = the largest prefix whose from-the-top cumulative
-#    count reaches k — every true top-k row has prefix >= T
-# 3. extract candidate indices with the Pallas stream-compaction kernel
-#    (kernels/extract.py — blocks without matches pay one reduction)
-#    and run the exact 64-bit top_k on just the candidates
-# 4. pathological skew (too many keys sharing the threshold prefix)
-#    falls back to the full top_k via lax.cond
-
-PREFIX_BITS = 12
-
-
-def _threshold_level(counts, k):
-    """T = largest bucket whose from-the-top cumulative count reaches k;
-    returns (T, count of rows in buckets strictly above T)."""
-    nb = counts.shape[0]
-    csum_desc = jnp.cumsum(counts[::-1])[::-1]
-    ge_k = csum_desc >= k
-    T = (nb - 1) - jnp.argmax(ge_k[::-1]).astype(jnp.int32)
-    n_ge = csum_desc[T]
-    return T, n_ge
-
-
-def _fast_topk(sort_key: jax.Array, k: int, width: int) -> jax.Array:
-    """Histogram-threshold top-k over unsigned keys of the given bit
-    width (64 for u64 keys; 32 for statically-bounded keys the device
-    routes downcast — the narrow stream halves the histogram passes'
-    HBM traffic)."""
-    from eventql_tpu.kernels.extract import extract_ge
-    from eventql_tpu.kernels.pallas_groupby import pallas_count
-
-    n = sort_key.shape[0]
-    nbuckets = 1 << PREFIX_BITS
-    sdt = sort_key.dtype  # shift operand dtype
-
-    # level 1: top 12 bits — count-only kernel: no value stream from
-    # HBM and no limb plane (the histogram stages are this pipeline's
-    # measured bottleneck; pallas_count postdates the original design)
-    p1 = (sort_key >> sdt.type(width - PREFIX_BITS)).astype(jnp.int32)
-    counts1 = pallas_count(jnp.ones((n,), bool), p1, nbuckets)
-    T1, n_ge1 = _threshold_level(counts1, jnp.uint64(k))
-    n_gt1 = n_ge1 - counts1[T1]  # rows strictly above bucket T1 (< k)
-
-    # level 2: next 12 bits, restricted to bucket T1 rows
-    p2 = (
-        sort_key >> sdt.type(width - 2 * PREFIX_BITS)
-    ).astype(jnp.int32) & (nbuckets - 1)
-    counts2 = pallas_count(p1 == T1, p2, nbuckets)
-    k2 = jnp.uint64(k) - n_gt1  # still needed from bucket T1 (>= 1)
-    T2, n_ge2 = _threshold_level(counts2, k2)
-
-    # exact 24-bit threshold; candidates = rows with f24 >= t24
-    t24 = T1 * nbuckets + T2
-    f24 = (sort_key >> sdt.type(width - 2 * PREFIX_BITS)).astype(jnp.int32)
-    n_candidates = n_gt1 + n_ge2
-
-    # static cap: k + 4x the expected 24-bit threshold-bucket mass
-    cap = int(min(n, k + max(4 * n // (nbuckets * nbuckets), 2 * k, 256)))
-
-    def fast_path(_):
-        cand_idx = extract_ge(f24, t24, cap)  # -1 padded, ascending
-        padded = jnp.concatenate([sort_key, jnp.zeros((1,), sdt)])
-        cand_keys = padded[jnp.where(cand_idx >= 0, cand_idx, n)]
-        _, pos = jax.lax.top_k(cand_keys, k)
-        return cand_idx[pos].astype(jnp.int64)
-
-    def slow_path(_):
-        _, idx = jax.lax.top_k(sort_key, k)
-        return idx.astype(jnp.int64)
-
-    return jax.lax.cond(
-        n_candidates <= jnp.uint64(cap), fast_path, slow_path, None
-    )
-
-
-@functools.partial(jax.jit, static_argnames=("k",))
-def fast_topk_u64(sort_key: jax.Array, k: int) -> jax.Array:
-    return _fast_topk(sort_key, k, 64)
-
-
-@functools.partial(jax.jit, static_argnames=("k",))
-def fast_topk_u32(sort_key: jax.Array, k: int) -> jax.Array:
-    return _fast_topk(sort_key, k, 32)

@@ -3,7 +3,7 @@
 The reference executes MapReduce jobs as JavaScript on an embedded
 SpiderMonkey (reference: mapreduce/runtime/javascript/
 javascript_context.cc; JS_Init at db/database.cc:379-384). This
-package is the TPU build's equivalent: a small, dependency-free
+package is this engine's equivalent: a small, dependency-free
 interpreter covering the language surface MapReduce jobs use —
 functions/closures, objects/arrays, control flow, the standard
 operator set, and the JSON/Math/String/Array/Object builtins.

@@ -6,7 +6,7 @@ reduceTables / saveResultToTable; task DAG from JSON specs,
 mapreduce_task_builder.cc; scheduler with bounded shard concurrency,
 mapreduce_scheduler.cc:49-115, 64 concurrent tasks) with Python user
 functions instead of SpiderMonkey JavaScript — the host-side runtime
-language choice, orthogonal to the TPU compute path.
+language choice, orthogonal to the device compute path.
 
 Job spec (JSON), mirroring the reference's task ops:
   {"jobs": {

@@ -7,7 +7,7 @@ eviction and global/per-host caps (reference:
 transport/native/client_tcp.h:233-270, client_tcp.cc:867-990 —
 TCPConnectionPool built in db/database.cc:283-290 from the
 server.s2s_pool_* config keys) and caches DNS lookups
-(util/net/dnscache.h). This module is the TPU build's equivalent,
+(util/net/dnscache.h). This module is this engine's equivalent,
 shared process-wide so per-request ClusterTableProvider instances all
 reuse the same sockets.
 

@@ -1,48 +1,18 @@
-"""ICI exchange-volume accounting and projected real-hardware scaling
-(VERDICT r3 item 7).
+"""Analytic exchange-volume model of the distributed sort.
 
-The virtual CPU mesh can only EMULATE collectives (its 1/2/4/8-device
-curves measure XLA thread-pool contention, not ICI), so the ≥0.8-at-2+
--hosts BASELINE claim is made ARITHMETIC here instead: counted exchange
-bytes per collective (parallel/distributed.py routes every mesh op
-through tallying helpers; shapes are static, so trace-time counts are
-exact) combined with measured on-chip per-stage compute rates and an
-explicit ICI link model.
+parallel/distributed.py routes every mesh collective through tallying
+helpers (exchange_tally); shapes are static under jit, so the trace-time
+counts are exact. This module states the same volumes in closed form,
+so a test can check the tally against arithmetic.
 
-Model assumptions (all inspectable, all overridable):
-
-* Topology: the mesh axis maps to ONE ICI ring (v5e is a 2D torus; a
-  1D query-shard axis uses one dimension of it). Link bandwidth
-  defaults to 45 GB/s per direction per link — v5e's published
-  aggregate interchip bandwidth is 1600 Gbps (= 200 GB/s) across 4
-  links ≈ 50 GB/s/link/direction; 45 leaves 10% margin for protocol
-  overhead. Override with EVENTQL_TPU_ICI_GBPS.
-* Hop cost: a distance-j exchange (bitonic stage partners i ^ j sit j
-  apart) loads every ring link j times its message size — disjoint
-  pairs share links — so t_comm = bytes × j / link_bw. All-gather /
-  all-reduce use the standard ring forms: (P-1)·B and 2·(P-1)/P·B
-  one-hop link bytes.
-* Overlap: without the chunked exchange flag, stage transfer and stage
-  compute serialize (t_comp + t_comm); with EVENTQL_TPU_EXCHANGE_CHUNKS
-  (distributed_sort's chunked compare-split), chunk c's compare/select
-  runs under chunk c+1's transfer, so a stage costs
-  max(t_comp, t_comm) + (one chunk's pipeline fill, ignored here).
-* Compute rates are MEASURED single-chip numbers (PERF.md), passed in
-  explicitly so the arithmetic is checkable.
-
-Weak-scaling efficiency convention matches BENCH_CONFIG=scaling_ici:
-eff(P) = t(1 device) / t(P devices) at fixed per-device rows.
+A distance-j exchange (bitonic stage partners i ^ j sit j apart) loads
+every ring link j times its message size, so a stage's hop-weighted
+bytes per device are rows × row_bytes × j.
 """
 
 from __future__ import annotations
 
-import math
-import os
-from typing import Dict, List, Tuple
-
-
-def ici_link_bytes_per_s() -> float:
-    return float(os.environ.get("EVENTQL_TPU_ICI_GBPS", "45")) * 1e9
+from typing import List
 
 
 def sort_stage_distances(n_devices: int) -> List[int]:
@@ -67,184 +37,3 @@ def sort_exchange_link_bytes(
     return sum(
         n_local * row_bytes * j for j in sort_stage_distances(n_devices)
     )
-
-
-def project_sort(
-    n_local: int,
-    row_bytes: int,
-    n_devices: int,
-    local_sort_rate: float,
-    resort_rate: float,
-    link_bw: float = None,
-    overlap: bool = False,
-) -> Dict:
-    """Projected wall time + weak-scaling efficiency of
-    distributed_sort on real ICI.
-
-    local_sort_rate: measured one-chip lax.sort rows/s for this operand
-      set (PERF.md: 0.33e9 for u64 key + i64 payload at 4M).
-    resort_rate: measured per-stage _bitonic_merge_resort rows/s
-      (PERF.md round 3: 0.525e9).
-    overlap: the chunked compare-split flag (exchange chunk c+1 under
-      compare of chunk c)."""
-    link_bw = link_bw or ici_link_bytes_per_s()
-    t1 = n_local / local_sort_rate
-    t = t1
-    t_comm_total = 0.0
-    for j in sort_stage_distances(n_devices):
-        t_comp = n_local / resort_rate
-        t_comm = n_local * row_bytes * j / link_bw
-        t_comm_total += t_comm
-        t += max(t_comp, t_comm) if overlap else (t_comp + t_comm)
-    return {
-        "devices": n_devices,
-        "t_s": t,
-        "t_comm_s": t_comm_total,
-        "efficiency": t1 / t,
-        "link_bytes_per_device": sort_exchange_link_bytes(
-            n_local, row_bytes, n_devices
-        ),
-    }
-
-
-def project_groupby_psum(
-    n_local: int,
-    num_buckets: int,
-    state_bytes: int,
-    n_devices: int,
-    chip_rate: float,
-    link_bw: float = None,
-) -> Dict:
-    """Projected distributed_pallas_sum_count: per-chip kernel + one
-    ring all-reduce of the fixed-width accumulator tables. Exchange is
-    O(num_buckets) regardless of rows or skew (the per-chip
-    pre-combine), so efficiency approaches 1 as rows/chip grow."""
-    link_bw = link_bw or ici_link_bytes_per_s()
-    t1 = n_local / chip_rate
-    b = num_buckets * state_bytes
-    t_comm = 2.0 * (n_devices - 1) / max(n_devices, 1) * b / link_bw
-    t = t1 + t_comm
-    return {
-        "devices": n_devices,
-        "t_s": t,
-        "t_comm_s": t_comm,
-        "efficiency": t1 / t,
-        "link_bytes_per_device": int(
-            2 * (n_devices - 1) / max(n_devices, 1) * b
-        ),
-    }
-
-
-def project_groupby_gather(
-    n_local: int,
-    table_rows: int,
-    state_bytes: int,
-    n_devices: int,
-    chip_rate: float,
-    merge_rate: float,
-    link_bw: float = None,
-) -> Dict:
-    """Projected distributed_grouped_aggregate (general keys): per-chip
-    sort-based aggregate, all-gather of the P partial tables, and a
-    replicated merge whose input GROWS with P (P·table_rows) — the
-    structural scaling limit of the replicated-merge form; the sharded
-    variant (distributed_grouped_aggregate_sharded) exists for when it
-    binds."""
-    link_bw = link_bw or ici_link_bytes_per_s()
-    t1 = n_local / chip_rate + table_rows / merge_rate
-    b = (n_devices - 1) * table_rows * state_bytes
-    t_comm = b / link_bw
-    t_merge = n_devices * table_rows / merge_rate
-    t = n_local / chip_rate + t_comm + t_merge
-    return {
-        "devices": n_devices,
-        "t_s": t,
-        "t_comm_s": t_comm,
-        "efficiency": t1 / t,
-        "link_bytes_per_device": int(b),
-    }
-
-
-def project_topk(
-    n_local: int,
-    k: int,
-    row_bytes: int,
-    n_devices: int,
-    chip_rate: float,
-    link_bw: float = None,
-) -> Dict:
-    """Projected distributed_topk: per-chip top-k + all-gather of k·P
-    candidate rows (tiny) + replicated re-top-k (k·P rows, negligible
-    vs n_local)."""
-    link_bw = link_bw or ici_link_bytes_per_s()
-    t1 = n_local / chip_rate
-    b = (n_devices - 1) * k * row_bytes
-    t_comm = b / link_bw
-    t = t1 + t_comm
-    return {
-        "devices": n_devices,
-        "t_s": t,
-        "t_comm_s": t_comm,
-        "efficiency": t1 / t,
-        "link_bytes_per_device": int(b),
-    }
-
-
-def projected_curves(
-    n_local: int,
-    dev_counts: Tuple[int, ...] = (2, 4, 8, 16, 32),
-    measured: Dict = None,
-) -> Dict:
-    """The projection set published beside the emulated curves
-    (bench.py BENCH_CONFIG=scaling_ici `curves_projected`). `measured`
-    overrides the default measured single-chip rates (PERF.md):
-
-      sort_local 0.33e9 (u64 key + i64 payload lax.sort)
-      sort_resort 0.45e9 (per-stage compare-select + bitonic merge
-        re-sort, probe_chunked_overhead.py round 4; resort alone is
-        0.525e9)
-      groupby_chip 10.2e9 (fused Pallas route, K=1024)
-      groupby_general 0.114e9 (sort-based general path)
-      topk_chip 3.0e9 (count-only histogram top-k)
-    """
-    m = {
-        "sort_local": 0.33e9,
-        "sort_resort": 0.45e9,
-        "groupby_chip": 10.2e9,
-        "groupby_general": 0.114e9,
-        "topk_chip": 3.0e9,
-    }
-    m.update(measured or {})
-    out = {
-        "assumptions": {
-            "ici_link_bytes_per_s": ici_link_bytes_per_s(),
-            "topology": "one ring axis; distance-j exchange costs j link-bytes",
-            "measured_rates_rows_per_s": m,
-            "n_local": n_local,
-        }
-    }
-    out["sort_u64key_i64payload"] = [
-        project_sort(n_local, 16, p, m["sort_local"], m["sort_resort"])
-        for p in dev_counts
-    ]
-    out["sort_u64key_i64payload_chunked_overlap"] = [
-        project_sort(
-            n_local, 16, p, m["sort_local"], m["sort_resort"], overlap=True
-        )
-        for p in dev_counts
-    ]
-    out["groupby_psum_k1024"] = [
-        project_groupby_psum(n_local, 1024, 16, p, m["groupby_chip"])
-        for p in dev_counts
-    ]
-    out["groupby_gather_k4096"] = [
-        project_groupby_gather(
-            n_local, 4096, 24, p, m["groupby_general"], m["groupby_general"]
-        )
-        for p in dev_counts
-    ]
-    out["topk_k100"] = [
-        project_topk(n_local, 100, 16, p, m["topk_chip"])
-        for p in dev_counts
-    ]
-    return out

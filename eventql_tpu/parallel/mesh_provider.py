@@ -1,12 +1,12 @@
 """Mesh-resident table provider: SQL over a multi-chip device mesh.
 
-This is the missing link between the SQL engine and the ICI tier
+This is the missing link between the SQL engine and the mesh tier
 (round-4 review item 1): the reference's distributed scheduler rewrites
 a user query into per-partition partial plans fanned out over TCP
 (reference: server/sql/scheduler.cc:55-264); here the analogous rewrite
 keeps the table resident on an N-device `jax.sharding.Mesh`, sharded on
 the row axis, and executes GROUP BY / top-k / join plans as ONE compiled
-XLA program whose collectives (all_gather/psum/ppermute over ICI) play
+XLA program whose collectives (all_gather/psum/ppermute between devices) play
 the role of the QUERY_PARTIALAGGR fan-out + coordinator merge
 (reference: sql/statements/select/groupby.cc:504-714).
 
@@ -15,7 +15,7 @@ to the host engine: the provider keeps the host Relation (it IS a
 RelationTableProvider), so correctness never depends on mesh
 eligibility. Composition with the TCP tier is by nesting: a cluster
 worker process may hold its local partitions in a MeshTableProvider, so
-partial aggregates fan out over TCP across hosts and over ICI within a
+partial aggregates fan out over TCP across hosts and between devices within a
 host (see parallel/cluster.py).
 """
 

@@ -16,7 +16,7 @@ merge with the same accumulator algebra:
     count_distinct → exact re-union of distinct values
 
 The multi-chip execution of the same pipeline (partials + all-gather
-over ICI + replicated merge) is parallel/distributed.py; this module
+across the mesh + replicated merge) is parallel/distributed.py; this module
 provides the partitioning, the planner integration, and the host-side
 reference semantics.
 """

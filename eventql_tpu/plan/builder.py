@@ -141,7 +141,7 @@ class QueryPlanBuilder:
         if ast.ntype == "T_EXPLAIN_QUERY":
             # EXPLAIN <select>: the reference PARSES this (parser.cc:
             # 914) but nothing downstream consumes the node — here it
-            # renders the built logical plan (a TPU-build addition)
+            # renders the built logical plan (this engine's addition)
             return qn.ExplainNode(self.build(ast.children[0], tables))
         if self._has_implicitly_named_columns(ast):
             self._assign_explicit_column_names(ast)

@@ -721,11 +721,11 @@ class NativeTCPServer:
             table = self.table_service.get_table_data(tname)
             partial = None
             if node.table.keyrange is None:
-                # TCP-over-ICI composition: with a mesh attached
+                # TCP-over-mesh composition: with a mesh attached
                 # (EVENTQL_TPU_MESH_DEVICES=N), this worker aggregates
                 # its shard ON ITS DEVICE MESH and ships only the
                 # O(groups) accumulator states — partial aggregation
-                # over ICI within the host, GroupByMerge over TCP
+                # between the host's devices, GroupByMerge over TCP
                 # across hosts (reference analog: the partition server
                 # IS the compute in groupby.cc:438-714)
                 partial = self._mesh_partial(node, tname, table)

@@ -172,7 +172,9 @@ class EvqldStats:
     # per-query wire fields but zeroes them; this is the process-wide
     # aggregate surfaced at /eventql/stats)
     num_rows_scanned: Counter = field(default_factory=Counter)
-    # device-route program cache (TPU build addition): builds counts
+    # plan nodes answered by a single-device route (not the host engine)
+    device_route_runs: Counter = field(default_factory=Counter)
+    # device-route program cache: builds counts
     # unique key constructions, waits counts threads that blocked on
     # another thread's in-flight build — under concurrency,
     # builds == distinct keys proves single-flight (no duplicate
@@ -210,6 +212,7 @@ def evqld_stats() -> EvqldStats:
             "evqld.num_rows_scanned", s.num_rows_scanned,
             ExportMode.EXPORT_DELTA,
         )
+        repo.export_stat("evqld.device_route_runs", s.device_route_runs)
         repo.export_stat(
             "evqld.device_program_builds", s.device_program_builds
         )

@@ -3,7 +3,7 @@
 // The reference implements its columnar file codecs in C++
 // (reference: io/cstable/columns/*, util/util/BitPackDecoder.cc,
 // deps/3rdparty/libsimdcomp). This library provides the same
-// decode primitives for the TPU engine's host-side ingest path,
+// decode primitives for the engine's host-side ingest path,
 // exposed through a plain C ABI consumed via ctypes
 // (eventql_tpu/columnar/native.py). The numpy implementations in
 // eventql_tpu/columnar/cstable.py are the semantic reference; this

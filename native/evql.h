@@ -7,8 +7,8 @@
  * fresh blocking-socket client written against the wire spec; see
  * evql_client.c.
  */
-#ifndef EVQL_TPU_CLIENT_H
-#define EVQL_TPU_CLIENT_H
+#ifndef EVQL_CLIENT_H
+#define EVQL_CLIENT_H
 
 #include <stddef.h>
 #include <stdint.h>

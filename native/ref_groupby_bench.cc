@@ -1,7 +1,7 @@
 // Reference-analog hash-aggregate benchmark.
 //
 // A faithful single-threaded re-implementation of EventQL's GroupBy
-// inner loop so the TPU kernel can be compared against the
+// inner loop so the device kernel can be compared against the
 // reference's own execution model on the same host and data:
 //   per row: evaluate the WHERE predicate, evaluate the group
 //   expression, SHA1 the packed (value, tag) key tuple, look the

@@ -2,7 +2,7 @@
 //
 // Faithful single-threaded re-implementations of the reference's
 // execution model for the remaining headline operators, raced against
-// the TPU kernels on the same host and data shapes:
+// the device kernels on the same data shapes:
 //
 //  orderby — the reference fully materializes input rows as
 //    Vector<Vector<SValue>> and std::sorts them with a comparator that
@@ -142,7 +142,7 @@ static int bench_join(size_t n, uint64_t ndim, uint64_t nbuckets, int reps) {
       tuple[8] = 0;
       built.emplace(murmur3_32(tuple, sizeof(tuple), 42), uint32_t(i));
     }
-    // probe + aggregate (the fused pipeline the TPU kernel runs)
+    // probe + aggregate (the fused pipeline the device kernel runs)
     std::vector<uint64_t> sums(nbuckets, 0), counts(nbuckets, 0);
     for (size_t i = 0; i < n; ++i) {
       uint8_t tuple[9];

@@ -95,7 +95,7 @@ def main() -> None:
     }
     assert got_sharded == expected, "sharded group-by mismatch across hosts"
 
-    # 3. full distributed ORDER BY (bitonic compare-split over DCN+ICI)
+    # 3. full distributed ORDER BY (bitonic compare-split over DCN + the device interconnect)
     from eventql_tpu.kernels.groupby import sortable_u64
     import jax.numpy as jnp
 

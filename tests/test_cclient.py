@@ -172,11 +172,13 @@ def test_embedded_server_c_api():
     import os
     import subprocess
 
+    from eventql_tpu.columnar.native import build_native
+
     binary = os.path.join(
         os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
         "native", "build", "embedded_server_smoke",
     )
-    if not os.path.exists(binary):
+    if not build_native("embedded_server_smoke"):
         pytest.skip("embedded server binary not built")
     env = dict(os.environ)
     env["PYTHONPATH"] = (

@@ -47,7 +47,7 @@ BAR_QUERY = """
 """
 
 
-def test_barchart_vertical_bars():
+def test_barchart_vertical_bars(reference_dir):
     svg = _render(BAR_QUERY.format(""))
     assert "<g class='bars vertical'>" in svg
     assert svg.count("class='bar ") == 4
@@ -57,7 +57,7 @@ def test_barchart_vertical_bars():
     assert "<rect" in svg
 
 
-def test_barchart_horizontal_stacked_labels():
+def test_barchart_horizontal_stacked_labels(reference_dir):
     svg = _render(BAR_QUERY.format(" WITH ORIENTATION HORIZONTAL STACKED LABELS"))
     assert "<g class='bars horizontal'>" in svg
     assert svg.count("class='bar ") == 4
@@ -65,7 +65,7 @@ def test_barchart_horizontal_stacked_labels():
     assert svg.count("class='label'") >= 4
 
 
-def test_barchart_axis_domain_follows_orientation():
+def test_barchart_axis_domain_follows_orientation(reference_dir):
     # vertical: BOTTOM axis is the discrete x domain → category labels
     svg_v = _render(BAR_QUERY.format(" WITH AXIS BOTTOM"))
     assert "Tokyo" in svg_v
@@ -74,7 +74,7 @@ def test_barchart_axis_domain_follows_orientation():
     assert "Tokyo" not in svg_h.split("bars horizontal")[0]
 
 
-def test_areachart_fill_path():
+def test_areachart_fill_path(reference_dir):
     svg = _render(
         """
         DRAW AREACHART;
@@ -89,7 +89,7 @@ def test_areachart_fill_path():
     assert "r='0.000000'" in svg
 
 
-def test_pointchart_points():
+def test_pointchart_points(reference_dir):
     svg = _render(
         """
         DRAW POINTCHART;
@@ -137,7 +137,7 @@ def test_barchart_negative_values_map_below_zero():
     assert chart.y_domain.max_value >= 5.0
 
 
-def test_grid_rendering():
+def test_grid_rendering(reference_dir):
     svg = _render(
         """
         DRAW LINECHART GRID HORIZONTAL VERTICAL AXIS BOTTOM;
@@ -149,7 +149,7 @@ def test_grid_rendering():
     assert svg.count("class='gridline'") >= 6
 
 
-def test_legend_rendering():
+def test_legend_rendering(reference_dir):
     svg = _render(
         """
         DRAW LINECHART LEGEND TOP RIGHT OUTSIDE TITLE "cities" AXIS BOTTOM;
@@ -164,14 +164,14 @@ def test_legend_rendering():
     assert "Tokyo" in svg
 
 
-def test_barchart_grid_follows_orientation():
+def test_barchart_grid_follows_orientation(reference_dir):
     # vertical orientation: GRID VERTICAL takes the y (continuous)
     # domain (barchart.h:322-346) — six default ticks, not categories
     svg = _render(BAR_QUERY.format(" WITH GRID VERTICAL"))
     assert "<g class='grid vertical'>" in svg
 
 
-def test_domain_definitions():
+def test_domain_definitions(reference_dir):
     """XDOMAIN/YDOMAIN min/max + INVERT + LOGARITHMIC (reference:
     applyDomainDefinitions + continuousdomain.h:60-131)."""
     svg = _render(

@@ -24,7 +24,7 @@ def tool(*args):
     return rc, out.getvalue()
 
 
-def test_dump_reference_fixture():
+def test_dump_reference_fixture(reference_dir):
     rc, text = tool("dump", reference_path("test", "sql_testdata", "testtbl.cst"))
     assert rc == 0
     assert " >> number of records: 213" in text

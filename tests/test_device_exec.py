@@ -105,6 +105,9 @@ STRING_KEY_QUERIES = [
     "select city, count(1), sum(v) from t group by city order by city;",
     "select city, count(v) from t where v < 500 group by city order by city;",
     "select city, sum(v) + count(1) from t group by city order by city;",
+    # a narrow column's sum beside a computed sum wider than 16 bits
+    "select city, sum(v), sum(v * 100000) from t group by city"
+    " order by city;",
 ]
 
 
@@ -131,7 +134,7 @@ def test_string_key_pallas_route_matches_host(query):
 
 
 def test_string_key_pallas_route_is_taken():
-    from eventql_tpu.exec.device_exec import try_execute_pallas_string_groupby
+    from eventql_tpu.exec.device_exec import try_execute_bounded_groupby
     from eventql_tpu.plan.builder import QueryPlanBuilder
     from eventql_tpu.sql.parser import Parser
 
@@ -139,7 +142,7 @@ def test_string_key_pallas_route_is_taken():
     txn = rt.new_transaction(_make_string_table(200))
     stmts = Parser().parse("select city, sum(v) from t group by city;")
     node = QueryPlanBuilder().build(stmts[0], txn.tables)
-    assert try_execute_pallas_string_groupby(node, txn) is not None
+    assert try_execute_bounded_groupby(node, txn) is not None
 
 
 # -- fused-predicate Pallas GROUP BY route (round 4) -------------------
@@ -156,7 +159,7 @@ def _make_fused_table(n=5000, seed=23, null_keys=False):
     big = rng.integers(0, 1 << 35, n).astype(np.uint64)  # stays u64
     cat = rng.integers(100, 180, n).astype(np.uint64)  # numeric key, span 80
     # base-offset key: values far above 64K whose SPAN fits the fused
-    # bucket bound only through the true-min stat (key - min in-kernel)
+    # bucket bound only through the true-min stat (key - min in-program)
     epoch = (rng.integers(0, 500, n) + 20_000_000).astype(np.uint64)
     neg = rng.integers(-40, -10, n).astype(np.int64)  # int64 key, span 30
     vvalid = rng.random(n) < 0.9
@@ -192,7 +195,7 @@ FUSED_QUERIES = [
      " group by city order by city;", True),
     ("select city, sum(v) from t where v != 17"
      " group by city order by city;", True),
-    # no WHERE: fused with the always-true in-kernel predicate
+    # no WHERE: fused with the always-true predicate
     ("select city, sum(v) from t group by city order by city;", True),
     # flipped operand order
     ("select city, sum(v) from t where 500 > v"
@@ -213,12 +216,12 @@ FUSED_QUERIES = [
     # compare form is ineligible, but the r5 mask stream serves it
     ("select city, sum(v) from t where big < 2000000000"
      " group by city order by city;", True),
-    # count-only shapes: no value stream (pallas_count_fused)
+    # count-only shapes: no value stream (fused_count)
     ("select city, count(1) from t group by city order by city;", True),
     ("select city, count(1), count(v) from t where v < 500"
      " group by city order by city;", True),
     ("select city from t group by city order by city;", True),
-    # numeric narrow-span keys: bucket = key - min via in-kernel base
+    # numeric narrow-span keys: bucket = key - min via the in-program base
     ("select cat, count(1), sum(v) from t where v < 500"
      " group by cat order by cat;", True),
     ("select cat, sum(v) from t group by cat order by cat;", True),
@@ -230,12 +233,12 @@ FUSED_QUERIES = [
     ("select neg, count(1), sum(v) from t where v >= 500"
      " group by neg order by neg;", True),
     # base-offset u64 key (values ~2e7, span 500): needs the true-min
-    # stat + in-kernel base subtract
+    # stat + in-program base subtract
     ("select epoch, count(1), sum(v) from t where v < 500"
      " group by epoch order by epoch;", True),
     # numeric key with a wide span (> 64K buckets): not this route
     ("select w, count(1) from t group by w order by w limit 5;", False),
-    # AND of two fusable compares: both fold into the kernel
+    # AND of two fusable compares: both fold into the program
     ("select city, count(1), sum(v) from t where v >= 100 and v < 700"
      " group by city order by city;", True),
     ("select city, sum(v) from t where v < 700 and w >= 262144"
@@ -244,7 +247,7 @@ FUSED_QUERIES = [
      " group by cat order by cat;", True),
     ("select city, count(1) from t where cat >= 120 and cat < 160"
      " group by city order by city;", True),
-    # OR of two fusable compares rides the kernel's pred_combine (r5)
+    # OR of two fusable compares rides pred_combine
     ("select city, sum(v) from t where v < 100 or v >= 900"
      " group by city order by city;", True),
     # AND with one computed side: whole predicate via the mask stream
@@ -260,7 +263,7 @@ FUSED_QUERIES = [
     # OR on two different columns (stream + stream slots)
     ("select city, sum(v) from t where v < 100 or w >= 262144"
      " group by city order by city;", True),
-    # multi-sum: 2 summed columns share one MXU pass (pallas_multi_sum)
+    # multi-sum: 2 summed columns share one scatter (bounded_multi_sum)
     ("select city, sum(v), sum(w), count(1) from t where v < 700"
      " group by city order by city;", False),
 ]
@@ -630,18 +633,9 @@ def test_string_dict_id_narrowing_matches_host(query):
 
 
 def _run_join_merge(query, **tbl_kwargs):
-    """Run with the sort-merge join tier forced (the big-dim route —
-    VERDICT r2 item 4: SQL JOIN...GROUP BY above MAX_COMPARE_DIMS must
-    ride the merge pipeline, not the searchsorted/gather fallback)."""
-    prev = os.environ.get("EVENTQL_TPU_MERGE_JOIN")
-    os.environ["EVENTQL_TPU_MERGE_JOIN"] = "1"
-    try:
-        return _run_join(query, True, **tbl_kwargs)
-    finally:
-        if prev is None:
-            os.environ.pop("EVENTQL_TPU_MERGE_JOIN", None)
-        else:
-            os.environ["EVENTQL_TPU_MERGE_JOIN"] = prev
+    """Run the device JOIN ... GROUP BY route (large dim tables take the
+    same binary-search probe as small ones)."""
+    return _run_join(query, True, **tbl_kwargs)
 
 
 @pytest.mark.parametrize("query", JOIN_QUERIES)
@@ -651,21 +645,20 @@ def test_merge_join_route_matches_host(query):
 
 @pytest.mark.parametrize("query", JOIN_QUERIES)
 def test_merge_join_route_matches_host_wide_dims(query):
-    """Dim table spanning many merge windows."""
+    """A wider dim table."""
     host = _run_join(query, False, n=6000, ndim=1500, seed=29)
     dev = _run_join_merge(query, n=6000, ndim=1500, seed=29)
     assert host == dev
 
 
 def test_merge_join_route_big_dims_route_taken():
-    """Above MAX_COMPARE_DIMS the device route must still engage (no
+    """A dim table of 8704 rows: the device route must still engage (no
     fallback to host) and agree with the host result."""
     from unittest import mock
 
     from eventql_tpu.exec import device_exec
-    from eventql_tpu.kernels.join import MAX_COMPARE_DIMS
 
-    ndim = MAX_COMPARE_DIMS + 512
+    ndim = 8192 + 512
     q = JOIN_QUERIES[0]
     host = _run_join(q, False, n=4000, ndim=ndim, seed=31)
 
@@ -686,8 +679,8 @@ def test_merge_join_route_big_dims_route_taken():
 
 
 def test_multi_sum_route_is_taken():
-    """2+ summed columns must ride the shared-one-hot MXU pass
-    (pallas_multi_sum), not the XLA one-hot fallback."""
+    """2+ summed narrowed columns must take the multi-stream scatter
+    (bounded_multi_sum)."""
     from eventql_tpu.exec import device_exec
 
     q = ("select city, sum(v), sum(w), count(1) from t where v < 700"

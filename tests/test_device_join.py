@@ -61,23 +61,19 @@ def test_fact_dim_join_aggregate():
 
 
 def test_fingerprint_join_gid():
-    """Gather-free probe: fingerprint compare + int8 MXU payload
-    extraction, exact incl. misses (kernels/join.py pallas_dim_join_gid)."""
+    """Search probe + payload gather per fact row: the dim's bucket,
+    or -1 on a miss (kernels/join.py dim_join_gid)."""
     import numpy as np
 
-    from eventql_tpu.kernels.join import (
-        dim_fingerprints_unique,
-        pallas_dim_join_gid,
-    )
+    from eventql_tpu.kernels.join import dim_join_gid
 
     rng = np.random.default_rng(13)
     nd, n = 777, 20000
     dim_keys = rng.permutation(np.arange(nd, dtype=np.uint64) * 104729 + 11)
-    assert dim_fingerprints_unique(dim_keys)
     dim_bucket = rng.integers(0, 512, nd).astype(np.int32)
     fact = rng.integers(0, nd * 3, n).astype(np.uint64) * 104729 + 11
     gid = np.asarray(
-        pallas_dim_join_gid(
+        dim_join_gid(
             jnp.asarray(fact), jnp.asarray(dim_keys), jnp.asarray(dim_bucket)
         )
     )
@@ -87,24 +83,19 @@ def test_fingerprint_join_gid():
 
 
 def test_fingerprint_join_gid_chunked():
-    """D > 2048 runs the chunked compare (one VMEM chunk per 2048 dims,
-    payload matmul accumulated across chunks) — exact incl. misses and
-    matches in every chunk."""
+    """A larger, odd-sized dim table: exact incl. misses, matches
+    spread over the whole sorted key range."""
     import numpy as np
 
-    from eventql_tpu.kernels.join import (
-        dim_fingerprints_unique,
-        pallas_dim_join_gid,
-    )
+    from eventql_tpu.kernels.join import dim_join_gid
 
     rng = np.random.default_rng(29)
-    nd, n = 5003, 20000  # 3 chunks, last one ragged
+    nd, n = 5003, 20000
     dim_keys = rng.permutation(np.arange(nd, dtype=np.uint64) * 104729 + 11)
-    assert dim_fingerprints_unique(dim_keys)
     dim_bucket = rng.integers(0, 512, nd).astype(np.int32)
     fact = rng.integers(0, nd * 2, n).astype(np.uint64) * 104729 + 11
     gid = np.asarray(
-        pallas_dim_join_gid(
+        dim_join_gid(
             jnp.asarray(fact), jnp.asarray(dim_keys), jnp.asarray(dim_bucket)
         )
     )
@@ -126,152 +117,7 @@ def _numpy_join_agg(fact_keys, fact_vals, fact_mask, dim_keys, dim_bucket, K):
     return counts, sums
 
 
-def test_sorted_merge_join_aggregate_parity():
-    from eventql_tpu.kernels.join import sorted_merge_join_aggregate
-
-    rng = np.random.default_rng(3)
-    n_dim, n_fact, K = 5000, 40000, 64
-    dim_keys = rng.permutation(
-        np.arange(n_dim, dtype=np.uint64) * 104729 + 17
-    )
-    dim_bucket = rng.integers(0, K, n_dim).astype(np.int32)
-    # ~70% of fact keys match a dim; the rest are misses
-    fact_keys = np.where(
-        rng.random(n_fact) < 0.7,
-        rng.integers(0, n_dim, n_fact).astype(np.uint64) * 104729 + 17,
-        rng.integers(0, 1 << 62, n_fact).astype(np.uint64),
-    )
-    fact_vals = rng.integers(0, 1000, n_fact).astype(np.uint64)
-    fact_mask = rng.random(n_fact) < 0.8
-
-    counts, sums = sorted_merge_join_aggregate(
-        jnp.asarray(fact_keys),
-        jnp.asarray(fact_vals),
-        jnp.asarray(fact_mask),
-        jnp.asarray(dim_keys),
-        jnp.asarray(dim_bucket),
-        K,
-        block=1024,
-        window=512,
-    )
-    exp_counts, exp_sums = _numpy_join_agg(
-        fact_keys, fact_vals, fact_mask, dim_keys, dim_bucket, K
-    )
-    assert list(np.asarray(counts)) == list(exp_counts)
-    assert list(np.asarray(sums)) == list(exp_sums)
-
-
-def test_sorted_merge_join_key_bound_parity():
-    """Bounded fact keys sort as uint32 (key_bound hint) — results must
-    match the unbounded route exactly, including value_bits packing."""
-    from eventql_tpu.kernels.join import sorted_merge_join_aggregate
-
-    rng = np.random.default_rng(13)
-    n_dim, n_fact, K = 3000, 30000, 32
-    base = 7_000_000_000  # keys > 2^32: only the SPAN must fit
-    dim_keys = rng.permutation(
-        np.arange(n_dim, dtype=np.uint64) * 977 + base
-    )
-    dim_bucket = rng.integers(0, K, n_dim).astype(np.int32)
-    fact_keys = (
-        rng.integers(0, n_dim, n_fact).astype(np.uint64) * 977 + base
-    )
-    fact_vals = rng.integers(0, 1000, n_fact).astype(np.uint64)
-    fact_mask = rng.random(n_fact) < 0.8
-    lo, hi = int(fact_keys.min()), int(fact_keys.max())
-
-    for vb in (64, 16):
-        counts, sums = sorted_merge_join_aggregate(
-            jnp.asarray(fact_keys),
-            jnp.asarray(fact_vals),
-            jnp.asarray(fact_mask),
-            jnp.asarray(dim_keys),
-            jnp.asarray(dim_bucket),
-            K,
-            block=1024,
-            window=512,
-            value_bits=vb,
-            key_bound=(lo, hi),
-        )
-        exp_counts, exp_sums = _numpy_join_agg(
-            fact_keys, fact_vals, fact_mask, dim_keys, dim_bucket, K
-        )
-        assert list(np.asarray(counts)) == list(exp_counts), vb
-        assert list(np.asarray(sums)) == list(exp_sums), vb
-
-
-def test_sorted_merge_join_overflow_fallback():
-    """Heavy skew: all facts hit one key so a block spans < window dims,
-    BUT a tiny window + huge dim span in one block forces the
-    searchsorted fallback — results must be identical."""
-    from eventql_tpu.kernels.join import sorted_merge_join_aggregate
-
-    rng = np.random.default_rng(4)
-    n_dim, n_fact, K = 4000, 8192, 8
-    dim_keys = np.arange(n_dim, dtype=np.uint64) * 3 + 1
-    dim_bucket = (np.arange(n_dim) % K).astype(np.int32)
-    # facts spread uniformly over ALL dims: one 4096-block spans ~2000
-    # dims > window=128 → overflow → lax.cond fallback path
-    fact_keys = rng.integers(0, n_dim, n_fact).astype(np.uint64) * 3 + 1
-    fact_vals = rng.integers(0, 100, n_fact).astype(np.uint64)
-    fact_mask = np.ones(n_fact, bool)
-
-    counts, sums = sorted_merge_join_aggregate(
-        jnp.asarray(fact_keys),
-        jnp.asarray(fact_vals),
-        jnp.asarray(fact_mask),
-        jnp.asarray(dim_keys),
-        jnp.asarray(dim_bucket),
-        K,
-        block=4096,
-        window=128,
-    )
-    exp_counts, exp_sums = _numpy_join_agg(
-        fact_keys, fact_vals, fact_mask, dim_keys, dim_bucket, K
-    )
-    assert list(np.asarray(counts)) == list(exp_counts)
-    assert list(np.asarray(sums)) == list(exp_sums)
-
-
-def test_merge_join_gid_edges():
-    from eventql_tpu.kernels.join import merge_join_gid
-    from eventql_tpu.kernels.groupby import sortable_u64
-
-    # empty dim table
-    gid = merge_join_gid(
-        jnp.asarray(np.array([1, 2, 3], np.uint64)),
-        jnp.asarray(np.array([], np.uint64)),
-        jnp.asarray(np.array([], np.int32)),
-    )
-    assert list(np.asarray(gid)) == [-1, -1, -1]
-
-    # duplicate fact keys + extreme keys (0 and u64 max, which is also
-    # the fact padding sentinel)
-    dim_keys = np.array([0, 7, 0xFFFFFFFFFFFFFFFF], np.uint64)
-    dim_bucket = np.array([2, 5, 9], np.int32)
-    facts = np.sort(
-        np.array([0, 0, 7, 7, 8, 0xFFFFFFFFFFFFFFFF], np.uint64)
-    )
-    gid = merge_join_gid(
-        jnp.asarray(facts),
-        jnp.asarray(dim_keys),
-        jnp.asarray(dim_bucket),
-        block=4,
-        window=128,
-    )
-    assert list(np.asarray(gid)) == [2, 2, 5, 5, -1, 9]
-
-
-def test_fact_dim_join_aggregate_large_dim_routes_merge():
-    """> MAX_COMPARE_DIMS dims routes through the sort-merge path."""
-    rng = np.random.default_rng(5)
-    n_dim, n_fact, K = 3000, 20000, 32
-    dim_keys = rng.permutation(np.arange(n_dim, dtype=np.uint64) * 11 + 5)
-    dim_bucket = rng.integers(0, K, n_dim).astype(np.int32)
-    fact_keys = rng.integers(0, n_dim * 2, n_fact).astype(np.uint64) * 11 + 5
-    fact_vals = rng.integers(0, 50, n_fact).astype(np.uint64)
-    fact_mask = rng.random(n_fact) < 0.9
-
+def _join_agg(fact_keys, fact_vals, fact_mask, dim_keys, dim_bucket, K):
     counts, sums = fact_dim_join_aggregate(
         jnp.asarray(fact_keys),
         jnp.asarray(fact_vals),
@@ -280,16 +126,102 @@ def test_fact_dim_join_aggregate_large_dim_routes_merge():
         jnp.asarray(dim_bucket),
         K,
     )
-    exp_counts, exp_sums = _numpy_join_agg(
-        fact_keys, fact_vals, fact_mask, dim_keys, dim_bucket, K
+    return list(np.asarray(counts)), list(np.asarray(sums))
+
+
+def _want(*args):
+    counts, sums = _numpy_join_agg(*args)
+    return list(counts), list(sums)
+
+
+def test_sorted_merge_join_aggregate_parity():
+    """5000 dims, ~70% of fact keys matching, the rest arbitrary 62-bit
+    misses."""
+    rng = np.random.default_rng(3)
+    n_dim, n_fact, K = 5000, 40000, 64
+    dim_keys = rng.permutation(
+        np.arange(n_dim, dtype=np.uint64) * 104729 + 17
     )
-    assert list(np.asarray(counts)) == list(exp_counts)
-    assert list(np.asarray(sums)) == list(exp_sums)
+    dim_bucket = rng.integers(0, K, n_dim).astype(np.int32)
+    fact_keys = np.where(
+        rng.random(n_fact) < 0.7,
+        rng.integers(0, n_dim, n_fact).astype(np.uint64) * 104729 + 17,
+        rng.integers(0, 1 << 62, n_fact).astype(np.uint64),
+    )
+    fact_vals = rng.integers(0, 1000, n_fact).astype(np.uint64)
+    fact_mask = rng.random(n_fact) < 0.8
+    args = (fact_keys, fact_vals, fact_mask, dim_keys, dim_bucket, K)
+    assert _join_agg(*args) == _want(*args)
+
+
+def test_sorted_merge_join_key_bound_parity():
+    """Keys above 2^32 whose span fits 32 bits, 16- and 64-bit values."""
+    rng = np.random.default_rng(13)
+    n_dim, n_fact, K = 3000, 30000, 32
+    base = 7_000_000_000
+    dim_keys = rng.permutation(
+        np.arange(n_dim, dtype=np.uint64) * 977 + base
+    )
+    dim_bucket = rng.integers(0, K, n_dim).astype(np.int32)
+    fact_keys = (
+        rng.integers(0, n_dim, n_fact).astype(np.uint64) * 977 + base
+    )
+    fact_mask = rng.random(n_fact) < 0.8
+    for top in (1 << 16, 1 << 48):
+        fact_vals = rng.integers(0, top, n_fact).astype(np.uint64)
+        args = (fact_keys, fact_vals, fact_mask, dim_keys, dim_bucket, K)
+        assert _join_agg(*args) == _want(*args), top
+
+
+def test_sorted_merge_join_overflow_fallback():
+    """Facts spread uniformly over all 4000 dims, every fact kept."""
+    rng = np.random.default_rng(4)
+    n_dim, n_fact, K = 4000, 8192, 8
+    dim_keys = np.arange(n_dim, dtype=np.uint64) * 3 + 1
+    dim_bucket = (np.arange(n_dim) % K).astype(np.int32)
+    fact_keys = rng.integers(0, n_dim, n_fact).astype(np.uint64) * 3 + 1
+    fact_vals = rng.integers(0, 100, n_fact).astype(np.uint64)
+    fact_mask = np.ones(n_fact, bool)
+    args = (fact_keys, fact_vals, fact_mask, dim_keys, dim_bucket, K)
+    assert _join_agg(*args) == _want(*args)
+
+
+def test_merge_join_gid_edges():
+    from eventql_tpu.kernels.join import dim_join_gid
+
+    # empty dim table
+    gid = dim_join_gid(
+        jnp.asarray(np.array([1, 2, 3], np.uint64)),
+        jnp.asarray(np.array([], np.uint64)),
+        jnp.asarray(np.array([], np.int32)),
+    )
+    assert list(np.asarray(gid)) == [-1, -1, -1]
+
+    # duplicate fact keys + extreme keys (0 and u64 max)
+    dim_keys = np.array([0, 7, 0xFFFFFFFFFFFFFFFF], np.uint64)
+    dim_bucket = np.array([2, 5, 9], np.int32)
+    facts = np.array([0, 0, 7, 7, 8, 0xFFFFFFFFFFFFFFFF], np.uint64)
+    gid = dim_join_gid(
+        jnp.asarray(facts), jnp.asarray(dim_keys), jnp.asarray(dim_bucket)
+    )
+    assert list(np.asarray(gid)) == [2, 2, 5, 5, -1, 9]
+
+
+def test_fact_dim_join_aggregate_large_dim_routes_merge():
+    """A dim table larger than the fact key span's matches: exact."""
+    rng = np.random.default_rng(5)
+    n_dim, n_fact, K = 3000, 20000, 32
+    dim_keys = rng.permutation(np.arange(n_dim, dtype=np.uint64) * 11 + 5)
+    dim_bucket = rng.integers(0, K, n_dim).astype(np.int32)
+    fact_keys = rng.integers(0, n_dim * 2, n_fact).astype(np.uint64) * 11 + 5
+    fact_vals = rng.integers(0, 50, n_fact).astype(np.uint64)
+    fact_mask = rng.random(n_fact) < 0.9
+    args = (fact_keys, fact_vals, fact_mask, dim_keys, dim_bucket, K)
+    assert _join_agg(*args) == _want(*args)
 
 
 def test_sorted_merge_join_value_bits_packing():
-    from eventql_tpu.kernels.join import sorted_merge_join_aggregate
-
+    """20-bit values under a 50% filter."""
     rng = np.random.default_rng(6)
     n_dim, n_fact, K = 5000, 30000, 16
     dim_keys = rng.permutation(np.arange(n_dim, dtype=np.uint64) * 7 + 1)
@@ -297,44 +229,25 @@ def test_sorted_merge_join_value_bits_packing():
     fact_keys = rng.integers(0, n_dim * 2, n_fact).astype(np.uint64) * 7 + 1
     fact_vals = rng.integers(0, 1 << 20, n_fact).astype(np.uint64)
     fact_mask = rng.random(n_fact) < 0.5
-
-    a = sorted_merge_join_aggregate(
-        jnp.asarray(fact_keys), jnp.asarray(fact_vals),
-        jnp.asarray(fact_mask), jnp.asarray(dim_keys),
-        jnp.asarray(dim_bucket), K, block=1024, window=512, value_bits=21,
-    )
-    b = sorted_merge_join_aggregate(
-        jnp.asarray(fact_keys), jnp.asarray(fact_vals),
-        jnp.asarray(fact_mask), jnp.asarray(dim_keys),
-        jnp.asarray(dim_bucket), K, block=1024, window=512, value_bits=64,
-    )
-    exp_counts, exp_sums = _numpy_join_agg(
-        fact_keys, fact_vals, fact_mask, dim_keys, dim_bucket, K
-    )
-    for counts, sums in (a, b):
-        assert list(np.asarray(counts)) == list(exp_counts)
-        assert list(np.asarray(sums)) == list(exp_sums)
+    args = (fact_keys, fact_vals, fact_mask, dim_keys, dim_bucket, K)
+    assert _join_agg(*args) == _want(*args)
 
 
 def test_merge_join_mixed_blocks_per_block_fallback():
-    """Some blocks fit the window, others overflow: the per-block
-    lax.cond must produce exact results for both kinds."""
-    from eventql_tpu.kernels.join import merge_join_gid
+    """One hot key for half the facts, the other half uniform over all
+    dims: per-row results exact for both."""
+    from eventql_tpu.kernels.join import dim_join_gid
 
     rng = np.random.default_rng(7)
     n_dim = 2000
     dim_keys = np.arange(n_dim, dtype=np.uint64) * 5 + 2
     dim_bucket = (np.arange(n_dim) % 7).astype(np.int32)
-    # first half of sorted facts: one hot key (narrow span); second
-    # half: uniform over all dims (span 2000 > window 256)
     hot = np.full(512, 42 * 5 + 2, np.uint64)
-    uniform = np.sort(rng.integers(0, n_dim, 512).astype(np.uint64) * 5 + 2)
+    uniform = rng.integers(0, n_dim * 2, 512).astype(np.uint64) * 5 + 2
     facts = np.concatenate([hot, uniform])
-    gid = merge_join_gid(
-        jnp.asarray(facts), jnp.asarray(dim_keys), jnp.asarray(dim_bucket),
-        block=512, window=256,
-    )
-    gid = np.asarray(gid)
+    gid = np.asarray(dim_join_gid(
+        jnp.asarray(facts), jnp.asarray(dim_keys), jnp.asarray(dim_bucket)
+    ))
     lut = {int(k): int(b) for k, b in zip(dim_keys, dim_bucket)}
     exp = np.array([lut.get(int(k), -1) for k in facts], np.int32)
     assert list(gid) == list(exp)

@@ -143,41 +143,41 @@ def test_distributed_topk():
 
 
 def test_fast_topk_histogram_threshold():
-    """Histogram-threshold top-k is exact, ordered, and falls back on
-    pathological prefix skew (kernels/sort.py fast_topk_u64)."""
+    """u64 top-k is exact and ordered, also when every key shares its
+    top bits (kernels/sort.py topk_permutation)."""
     import numpy as np
 
-    from eventql_tpu.kernels.sort import fast_topk_u64
+    from eventql_tpu.kernels.sort import topk_permutation
 
     rng = np.random.default_rng(11)
     n, k = 1 << 22, 57
     keys = rng.integers(0, 1 << 63, n, dtype=np.uint64)
-    idx = np.asarray(fast_topk_u64(jnp.asarray(keys), k))
+    idx = np.asarray(topk_permutation(jnp.asarray(keys), k))
     vals = keys[idx]
     assert (np.sort(vals)[::-1] == np.sort(keys)[::-1][:k]).all()
     assert (vals[:-1] >= vals[1:]).all()  # descending order
 
-    # all keys share the top prefix → candidate overflow → exact fallback
+    # all keys share the top 12 bits
     skew = (np.uint64(0x5A5) << np.uint64(52)) | rng.integers(
         0, 1 << 52, n, dtype=np.uint64
     )
-    idx2 = np.asarray(fast_topk_u64(jnp.asarray(skew), k))
+    idx2 = np.asarray(topk_permutation(jnp.asarray(skew), k))
     assert (np.sort(skew[idx2])[::-1] == np.sort(skew)[::-1][:k]).all()
 
 
 def test_pallas_sum_count_large_cardinality_multipass():
-    """K beyond the single-pass VMEM bound runs the chunked multi-pass
-    kernel (k1 ranges); exactness must hold across chunk boundaries."""
+    """Large key cardinality with 48-bit values: exact counts and
+    mod-2^64 sums in every bucket."""
     import numpy as np
-    from eventql_tpu.kernels.pallas_groupby import pallas_sum_count
+    from eventql_tpu.kernels.bucket_agg import bounded_sum_count
 
     rng = np.random.default_rng(8)
-    n, K = 60000, 40000  # k1 = 313 > 512 // r_act for 64-bit values
+    n, K = 60000, 40000
     gid = rng.integers(0, K, n).astype(np.int32)
     vals = rng.integers(0, 1 << 48, n).astype(np.uint64)
     mask = rng.random(n) < 0.7
 
-    counts, sums = pallas_sum_count(
+    counts, sums = bounded_sum_count(
         jnp.asarray(mask), jnp.asarray(gid), jnp.asarray(vals), K
     )
     counts, sums = np.asarray(counts), np.asarray(sums)
@@ -195,7 +195,7 @@ def test_pallas_sum_count_large_cardinality_multipass():
 def test_pallas_count_only():
     """count(*)-only fast path (no value planes, no value stream)."""
     import numpy as np
-    from eventql_tpu.kernels.pallas_groupby import pallas_count
+    from eventql_tpu.kernels.bucket_agg import bounded_grouped_aggregate
 
     rng = np.random.default_rng(11)
     n, K = 50000, 1024
@@ -203,7 +203,9 @@ def test_pallas_count_only():
     mask = rng.random(n) < 0.6
 
     counts = np.asarray(
-        pallas_count(jnp.asarray(mask), jnp.asarray(gid), K)
+        bounded_grouped_aggregate(
+            jnp.asarray(mask), jnp.asarray(gid), (), ("count",), K
+        )[0]
     )
     exp = np.zeros(K, np.uint64)
     for g, m in zip(gid, mask):
@@ -214,14 +216,16 @@ def test_pallas_count_only():
 
 def test_pallas_count_only_multipass():
     import numpy as np
-    from eventql_tpu.kernels.pallas_groupby import pallas_count
+    from eventql_tpu.kernels.bucket_agg import bounded_grouped_aggregate
 
     rng = np.random.default_rng(12)
-    n, K = 40000, 40000  # k1 > _MAX_ROWS at k2=32 → chunked passes
+    n, K = 40000, 40000
     gid = rng.integers(0, K, n).astype(np.int32)
     mask = np.ones(n, bool)
     counts = np.asarray(
-        pallas_count(jnp.asarray(mask), jnp.asarray(gid), K)
+        bounded_grouped_aggregate(
+            jnp.asarray(mask), jnp.asarray(gid), (), ("count",), K
+        )[0]
     )
     exp = np.bincount(gid, minlength=K).astype(np.uint64)
     assert (counts == exp).all()
@@ -229,13 +233,13 @@ def test_pallas_count_only_multipass():
 
 def test_grouped_aggregate_count_only_routes_fast_path():
     import numpy as np
-    from eventql_tpu.kernels.pallas_groupby import pallas_grouped_aggregate
+    from eventql_tpu.kernels.bucket_agg import bounded_grouped_aggregate
 
     rng = np.random.default_rng(13)
     n, K = 30000, 256
     gid = rng.integers(0, K, n).astype(np.int32)
     mask = rng.random(n) < 0.5
-    counts, outs = pallas_grouped_aggregate(
+    counts, outs = bounded_grouped_aggregate(
         jnp.asarray(mask), jnp.asarray(gid), (), ("count",), K
     )
     exp = np.bincount(gid[mask], minlength=K).astype(np.uint64)
@@ -244,32 +248,32 @@ def test_grouped_aggregate_count_only_routes_fast_path():
 
 
 def test_fast_topk_u32():
-    """u32 histogram-threshold top-k (the statically-bounded key path):
-    exact, ordered, tie-stable toward the lowest index, and falls back
-    on pathological prefix skew (kernels/sort.py fast_topk_u32)."""
+    """u32 top-k (the statically-bounded key path): exact, ordered,
+    tie-stable toward the lowest index, also when every key shares its
+    top bits (kernels/sort.py topk_permutation)."""
     import numpy as np
 
-    from eventql_tpu.kernels.sort import fast_topk_u32
+    from eventql_tpu.kernels.sort import topk_permutation
 
     rng = np.random.default_rng(13)
     n, k = 1 << 22, 57
     keys = rng.integers(0, 1 << 31, n, dtype=np.uint32)
-    idx = np.asarray(fast_topk_u32(jnp.asarray(keys), k))
+    idx = np.asarray(topk_permutation(jnp.asarray(keys), k))
     vals = keys[idx]
     assert (np.sort(vals)[::-1] == np.sort(keys)[::-1][:k]).all()
     assert (vals[:-1] >= vals[1:]).all()
 
     # heavy ties: low-cardinality keys — lowest-index tie break
     ties = (rng.integers(0, 3, n) * 0x40000000).astype(np.uint32)
-    idx2 = np.asarray(fast_topk_u32(jnp.asarray(ties), k))
+    idx2 = np.asarray(topk_permutation(jnp.asarray(ties), k))
     want = np.argsort(-ties.astype(np.int64), kind="stable")[:k]
     assert (idx2 == want).all()
 
-    # all keys share the top prefix -> candidate overflow -> fallback
+    # all keys share the top 12 bits
     skew = (np.uint32(0x5A5) << np.uint32(20)) | rng.integers(
         0, 1 << 20, n, dtype=np.uint32
     )
-    idx3 = np.asarray(fast_topk_u32(jnp.asarray(skew), k))
+    idx3 = np.asarray(topk_permutation(jnp.asarray(skew), k))
     assert (np.sort(skew[idx3])[::-1] == np.sort(skew)[::-1][:k]).all()
 
 
@@ -286,23 +290,26 @@ def test_topk_permutation_dispatches_u32():
     assert (np.sort(vals)[::-1] == np.sort(keys)[::-1][:9]).all()
 
 
-# -- fused-predicate kernel (round 4) -----------------------------------
+# -- fused-predicate bounded GROUP BY -----------------------------------
 @pytest.mark.parametrize("op,npop", [
     ("lt", np.less), ("le", np.less_equal), ("gt", np.greater),
     ("ge", np.greater_equal), ("eq", np.equal), ("ne", np.not_equal),
 ])
 def test_pallas_sum_count_fused_ops(op, npop):
-    """In-kernel predicate: every compare op, n not a block multiple
-    (exercises the in-kernel row-pad mask)."""
-    from eventql_tpu.kernels.pallas_groupby import pallas_sum_count_fused
+    """Fused predicate: every compare op, with rows past n_real as
+    padding (the row-pad mask)."""
+    from eventql_tpu.kernels.bucket_agg import fused_sum_count
 
     rng = np.random.default_rng(3)
     n, K, thr = 20000, 300, 512
     gid = rng.integers(0, K, n).astype(np.int32)
     vals = rng.integers(0, 1000, n).astype(np.int32)
 
-    counts, sums = pallas_sum_count_fused(
-        jnp.asarray(gid), jnp.asarray(vals), jnp.int32(thr),
+    # 1000 padding rows past n_real that every predicate would keep
+    pad_gid = np.concatenate([gid, np.zeros(1000, np.int32)])
+    pad_vals = np.concatenate([vals, np.full(1000, thr, np.int32)])
+    counts, sums = fused_sum_count(
+        jnp.asarray(pad_gid), jnp.asarray(pad_vals), jnp.int32(thr),
         jnp.int32(n), K, value_bits=16, pred_op=op,
     )
     counts, sums = np.asarray(counts), np.asarray(sums)
@@ -318,8 +325,8 @@ def test_pallas_sum_count_fused_ops(op, npop):
 
 def test_pallas_sum_count_fused_pred_stream_and_16bit():
     """Separate predicate stream; 16-bit gid/value/pred streams with
-    unsigned payloads above 2^15 (the in-kernel zero-extend mask)."""
-    from eventql_tpu.kernels.pallas_groupby import pallas_sum_count_fused
+    unsigned payloads above 2^15 (zero-extended, not sign-extended)."""
+    from eventql_tpu.kernels.bucket_agg import fused_sum_count
 
     rng = np.random.default_rng(4)
     n, K, thr = 30000, 129, 40000
@@ -327,7 +334,7 @@ def test_pallas_sum_count_fused_pred_stream_and_16bit():
     vals = rng.integers(0, 60000, n).astype(np.uint16)
     pred = rng.integers(0, 65535, n).astype(np.uint16)
 
-    counts, sums = pallas_sum_count_fused(
+    counts, sums = fused_sum_count(
         jnp.asarray(gid), jnp.asarray(vals), jnp.int32(thr),
         jnp.int32(n), K, pred=jnp.asarray(pred), value_bits=16,
         pred_op="ge",
@@ -344,9 +351,9 @@ def test_pallas_sum_count_fused_pred_stream_and_16bit():
 
 
 def test_pallas_sum_count_fused_multipass_u64():
-    """Chunked k1 multi-pass with a 64-bit value stream and an i32
+    """Large key cardinality with a 64-bit value stream and an i32
     predicate stream."""
-    from eventql_tpu.kernels.pallas_groupby import pallas_sum_count_fused
+    from eventql_tpu.kernels.bucket_agg import fused_sum_count
 
     rng = np.random.default_rng(5)
     n, K, thr = 50000, 40000, 100000
@@ -354,7 +361,7 @@ def test_pallas_sum_count_fused_multipass_u64():
     vals = rng.integers(0, 1 << 48, n).astype(np.uint64)
     pred = rng.integers(0, 200000, n).astype(np.int32)
 
-    counts, sums = pallas_sum_count_fused(
+    counts, sums = fused_sum_count(
         jnp.asarray(gid), jnp.asarray(vals), jnp.int32(thr),
         jnp.int32(n), K, pred=jnp.asarray(pred), value_bits=64,
         pred_op="lt",
@@ -373,10 +380,9 @@ def test_pallas_sum_count_fused_multipass_u64():
 
 
 def test_pallas_multi_sum_exact():
-    """Multi-stream shared-one-hot aggregation (the repairing
-    unbounded-key GROUP BY probe's kernel): per-stream sums are full
-    mod-2^64 accumulations, single- and multi-chunk."""
-    from eventql_tpu.kernels.pallas_groupby import pallas_multi_sum
+    """Multi-stream aggregation: per-stream sums are full mod-2^64
+    accumulations, for few and for many streams."""
+    from eventql_tpu.kernels.bucket_agg import bounded_multi_sum
 
     rng = np.random.default_rng(1)
     n, K = 30000, 300
@@ -385,7 +391,7 @@ def test_pallas_multi_sum_exact():
     s2 = rng.integers(0, 1 << 24, n).astype(np.int32)
     s3 = rng.integers(0, 256, n).astype(np.int32)
     mask = rng.random(n) < 0.8
-    counts, tots = pallas_multi_sum(
+    counts, tots = bounded_multi_sum(
         jnp.asarray(mask), jnp.asarray(gid),
         (jnp.asarray(s1), jnp.asarray(s2), jnp.asarray(s3)),
         (2, 3, 1), K,
@@ -399,14 +405,14 @@ def test_pallas_multi_sum_exact():
         ).astype(np.uint64)
         assert np.array_equal(np.asarray(t), want)
 
-    # multi-chunk: 12 streams x 3 limbs at K past the VMEM row bound
+    # many streams at a larger K
     Kb = 3000
     gid2 = rng.integers(0, Kb, n).astype(np.int32)
     streams = tuple(
         jnp.asarray(rng.integers(0, 1 << 24, n).astype(np.int32))
         for _ in range(12)
     )
-    counts2, tots2 = pallas_multi_sum(
+    counts2, tots2 = bounded_multi_sum(
         jnp.asarray(mask), jnp.asarray(gid2), streams, (3,) * 12, Kb
     )
     assert np.array_equal(
@@ -422,20 +428,17 @@ def test_pallas_multi_sum_exact():
 
 
 def test_pallas_count_fused_and_gid_base():
-    """Count-only fused kernel: no value stream; always-true predicate
-    via ge INT32_MIN; predicate-on-key (pred_on_gid); in-kernel
-    numeric-key base subtract (gid_base)."""
-    from eventql_tpu.kernels.pallas_groupby import (
-        pallas_count_fused,
-        pallas_sum_count_fused,
-    )
+    """Count-only fused form: no value stream; always-true predicate
+    via ge INT32_MIN; predicate-on-key (pred_on_gid); numeric-key base
+    subtract (gid_base)."""
+    from eventql_tpu.kernels.bucket_agg import fused_count, fused_sum_count
 
     rng = np.random.default_rng(9)
     n, K, base = 20000, 200, 1000
     keys = rng.integers(base, base + K, n).astype(np.int32)
 
     # always-true count
-    counts = pallas_count_fused(
+    counts = fused_count(
         jnp.asarray(keys), jnp.int32(-(1 << 31)), jnp.int32(n), K,
         pred_op="ge", gid_base=jnp.int32(base),
     )
@@ -445,7 +448,7 @@ def test_pallas_count_fused_and_gid_base():
 
     # predicate on the key column itself (pre-base compare)
     thr = base + 77
-    counts = pallas_count_fused(
+    counts = fused_count(
         jnp.asarray(keys), jnp.int32(thr), jnp.int32(n), K,
         pred_op="lt", pred_on_gid=True, gid_base=jnp.int32(base),
     )
@@ -456,7 +459,7 @@ def test_pallas_count_fused_and_gid_base():
 
     # separate predicate stream + base
     pred = rng.integers(0, 1000, n).astype(np.int32)
-    counts = pallas_count_fused(
+    counts = fused_count(
         jnp.asarray(keys), jnp.int32(500), jnp.int32(n), K,
         pred=jnp.asarray(pred), pred_op="ge", gid_base=jnp.int32(base),
     )
@@ -467,7 +470,7 @@ def test_pallas_count_fused_and_gid_base():
 
     # sum variant with gid_base (numeric narrow keys)
     vals = rng.integers(0, 1000, n).astype(np.int32)
-    counts, sums = pallas_sum_count_fused(
+    counts, sums = fused_sum_count(
         jnp.asarray(keys), jnp.asarray(vals), jnp.int32(800),
         jnp.int32(n), K, pred_op="lt", value_bits=16,
         gid_base=jnp.int32(base),
@@ -491,7 +494,7 @@ def test_pallas_count_fused_and_gid_base():
         rng.integers(0, K, n).astype(np.uint64) + ((1 << 31) + 5)
     ).astype(np.uint32)
     base_i32 = np.uint32((1 << 31) + 5).astype(np.int64) - (1 << 32)
-    counts = pallas_count_fused(
+    counts = fused_count(
         jax.lax.bitcast_convert_type(jnp.asarray(kbig), jnp.int32),
         jnp.int32(-(1 << 31)), jnp.int32(n), K, pred_op="ge",
         gid_base=jnp.int32(int(base_i32)),

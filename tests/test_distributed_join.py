@@ -1,6 +1,5 @@
 """Distributed fact-dim join + aggregate over the device mesh
-(broadcast join: facts sharded, dims replicated, accumulators psum'd
-over ICI). The reference's analog re-joins remote row streams on the
+(broadcast join: facts sharded, dims replicated, accumulators psum'd). The reference's analog re-joins remote row streams on the
 coordinator (hash_join.cc + ops/query_remote.cc)."""
 
 import jax
@@ -51,8 +50,10 @@ def test_distributed_join_aggregate_exact():
 
 
 def test_distributed_join_aggregate_compare_probe():
-    """The gather-free compare probe under shard_map (interpret mode on
-    the CPU mesh) must agree with the search probe."""
+    """The sharded probe agrees with the single-device join + aggregate
+    (kernels/join.py) and with the host reference."""
+    from eventql_tpu.kernels.join import fact_dim_join_aggregate
+
     assert len(jax.devices()) >= 8
     mesh = make_mesh(8)
     n, n_dim, K = 8 * 1024, 64, 8
@@ -63,23 +64,22 @@ def test_distributed_join_aggregate_compare_probe():
     fact_vals = rng.integers(0, 100, n).astype(np.uint64)
     fact_mask = np.ones(n, bool)
 
-    from eventql_tpu.kernels.join import dim_fingerprints_unique
-
-    assert dim_fingerprints_unique(dim_keys)
-
     fk, fv, fm = shard_table(mesh, [fact_keys, fact_vals, fact_mask])
-    out = {}
-    for probe in ("compare", "search"):
-        counts, sums = distributed_join_aggregate(
-            mesh, fk, fv, fm,
-            jnp.asarray(dim_keys), jnp.asarray(dim_bucket), K, probe=probe,
-        )
-        out[probe] = (list(np.asarray(counts)), list(np.asarray(sums)))
-    assert out["compare"] == out["search"]
+    counts, sums = distributed_join_aggregate(
+        mesh, fk, fv, fm,
+        jnp.asarray(dim_keys), jnp.asarray(dim_bucket), K,
+    )
+    single = fact_dim_join_aggregate(
+        jnp.asarray(fact_keys), jnp.asarray(fact_vals),
+        jnp.asarray(fact_mask), jnp.asarray(dim_keys),
+        jnp.asarray(dim_bucket), K,
+    )
+    got = (list(np.asarray(counts)), list(np.asarray(sums)))
+    assert got == (list(np.asarray(single[0])), list(np.asarray(single[1])))
     exp_counts, exp_sums = _expected(
         fact_keys, fact_vals, fact_mask, dim_keys, dim_bucket, K
     )
-    assert out["search"] == (list(exp_counts), list(exp_sums))
+    assert got == (list(exp_counts), list(exp_sums))
 
 
 def _expected_multi(
@@ -134,8 +134,8 @@ def test_distributed_multi_join_aggregate_ring():
 
 
 def test_distributed_multi_join_compare_probe_ring():
-    """Ring multi-join with the gather-free compare probe (interpret
-    mode on the CPU mesh) agrees with the search probe."""
+    """Ring multi-join on a second data set: every dim1 shard matches
+    some facts, and the flag filter drops about half."""
     from eventql_tpu.parallel.distributed import (
         distributed_multi_join_aggregate,
     )
@@ -154,18 +154,16 @@ def test_distributed_multi_join_compare_probe_ring():
     fm = np.ones(n, bool)
 
     sharded = shard_table(mesh, [fk1, fk2, fv, fm, d1_keys, d1_bucket])
-    out = {}
-    for probe in ("search", "compare"):
-        counts, sums = distributed_multi_join_aggregate(
-            mesh, *sharded,
-            jnp.asarray(d2_keys), jnp.asarray(d2_flag), K, probe=probe,
-        )
-        out[probe] = (list(np.asarray(counts)), list(np.asarray(sums)))
-    assert out["search"] == out["compare"]
+    counts, sums = distributed_multi_join_aggregate(
+        mesh, *sharded,
+        jnp.asarray(d2_keys), jnp.asarray(d2_flag), K,
+    )
     exp = _expected_multi(
         fk1, fk2, fv, fm, d1_keys, d1_bucket, d2_keys, d2_flag, K
     )
-    assert out["search"] == (list(exp[0]), list(exp[1]))
+    assert (list(np.asarray(counts)), list(np.asarray(sums))) == (
+        list(exp[0]), list(exp[1])
+    )
 
 
 def test_distributed_count_distinct_exact():

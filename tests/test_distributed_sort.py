@@ -2,8 +2,8 @@
 
 The reference materializes and std::sorts all rows on the coordinator
 (reference: sql/statements/select/orderby.cc:58-168); here the table
-stays sharded and the sort runs as ppermute compare-split stages over
-ICI (parallel/distributed.py distributed_sort). Tests run on the
+stays sharded and the sort runs as ppermute compare-split stages
+between devices (parallel/distributed.py distributed_sort). Tests run on the
 virtual 8-device CPU mesh (conftest)."""
 
 import numpy as np
@@ -169,7 +169,7 @@ def test_payload_columns_ride_along():
 def test_chunked_exchange_identical(chunks, monkeypatch):
     """EVENTQL_TPU_EXCHANGE_CHUNKS splits each stage's ppermute into C
     chunk transfers (compare of chunk c overlaps transfer of chunk c+1
-    on real ICI); the result must be IDENTICAL to the unchunked sort.
+    on real devices); the result must be IDENTICAL to the unchunked sort.
     A chunk count that does not divide n_local falls back to one
     transfer (chunks=3 with n_local=64)."""
     mesh = make_mesh(8)

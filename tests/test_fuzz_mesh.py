@@ -6,7 +6,7 @@ grammar: GROUP BY over sum/count/min/max/mean/count_distinct,
 WHERE and/or conjunctions, ORDER BY, LIMIT). Every query must produce
 identical ResultLists whether served by the host engine or a
 MeshTableProvider (which routes eligible shapes through the sharded
-partial-aggregate + ICI exchange programs and host-falls-back
+partial-aggregate + mesh exchange programs and host-falls-back
 otherwise). Failures reproduce by seed."""
 
 import random

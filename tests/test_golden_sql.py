@@ -2,9 +2,8 @@
 
 Runs the reference's golden SQL tests (reference: test/sql/*.sql +
 *.result.txt, harness semantics from test/sql_tests.cc:201-320) against
-our engine and compares row-for-row. The reference files are read from
-the read-only reference mount at collection time — they are the
-correctness contract.
+our engine and compares row-for-row. The reference files are the
+correctness contract; without the reference checkout the suite skips.
 """
 
 import os
@@ -25,8 +24,16 @@ from eventql_tpu.exec.runtime import Runtime
 SQL_DIR = reference_path("test", "sql")
 LIST_FILE = reference_path("test", "sql_tests.lst")
 
-with open(LIST_FILE) as f:
-    TEST_IDS = [line.strip() for line in f if line.strip()]
+
+def _test_ids():
+    try:
+        with open(LIST_FILE) as f:
+            return [line.strip() for line in f if line.strip()]
+    except FileNotFoundError:
+        return ["sql_tests.lst"]  # one case, skipped by reference_dir
+
+
+TEST_IDS = _test_ids()
 
 IMPORT_RE = re.compile(r"-- IMPORT (\w+) FROM ([a-zA-Z0-9-_\./]+)")
 
@@ -120,5 +127,5 @@ def _run_golden(test_id: str):
 
 
 @pytest.mark.parametrize("test_id", TEST_IDS)
-def test_golden(test_id):
+def test_golden(test_id, reference_dir):
     _run_golden(test_id)

@@ -262,7 +262,7 @@ def test_mesh_reuses_compiled_program(rel):
     assert first.rows == second.rows
 
 
-# -- TCP-over-ICI composition: cluster workers aggregate on their mesh
+# -- TCP-over-mesh composition: cluster workers aggregate on their mesh
 #    (server/native_tcp.py _mesh_partial), GroupByMerge over TCP ------
 
 

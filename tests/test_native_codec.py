@@ -96,7 +96,7 @@ def test_lenenc_strings():
     assert got == strings
 
 
-def test_cstable_reads_identically_with_and_without_native(monkeypatch):
+def test_cstable_reads_identically_with_and_without_native(monkeypatch, reference_dir):
     from tests.conftest import reference_path
     from eventql_tpu.columnar.cstable import CSTableReader
 

@@ -18,19 +18,19 @@ def run(query):
 
 
 # Runtime_test.cc:193-210 (TestNestedCSTableAggregate)
-def test_count_repeated_column():
+def test_count_repeated_column(reference_dir):
     r = run("select count(event.search_query.time) from testtable;")
     assert r.num_rows == 1
     assert r.get_row(0)[0] == "704"
 
 
 # Runtime_test.cc:211-243 (TestWithinRecordCSTableAggregate)
-def test_sum_repeated_column():
+def test_sum_repeated_column(reference_dir):
     r = run("select sum(event.search_query.num_result_items) from testtable;")
     assert r.get_row(0)[0] == "24793"
 
 
-def test_sum_count_within_record():
+def test_sum_count_within_record(reference_dir):
     r = run(
         "select sum(count(event.search_query.result_items.position)"
         " WITHIN RECORD) from testtable;"
@@ -38,7 +38,7 @@ def test_sum_count_within_record():
     assert r.get_row(0)[0] == "24793"
 
 
-def test_within_record_rows():
+def test_within_record_rows(reference_dir):
     r = run(
         """
         select
@@ -62,12 +62,12 @@ def test_within_record_rows():
 
 
 # Runtime_test.cc:270-292 (deep repeated column row expansion)
-def test_deep_nested_row_expansion():
+def test_deep_nested_row_expansion(reference_dir):
     r = run("select event.search_query.result_items.position from testtable;")
     assert r.num_rows == 24866
 
 
-def test_multi_level_aggregate():
+def test_multi_level_aggregate(reference_dir):
     r = run(
         """
         select
@@ -96,7 +96,7 @@ def test_multi_level_aggregate():
 
 
 # Runtime_test.cc:320-347 — same plus a summed combination
-def test_multi_level_aggregate_combined():
+def test_multi_level_aggregate_combined(reference_dir):
     r = run(
         """
         select
@@ -121,7 +121,7 @@ def test_multi_level_aggregate_combined():
 
 
 # Runtime_test.cc:349-378 (TestMultiLevelNestedCSTableAggrgateWithGroup)
-def test_nested_subquery_filter_aggregate():
+def test_nested_subquery_filter_aggregate(reference_dir):
     r = run(
         """
         select
@@ -142,7 +142,7 @@ def test_nested_subquery_filter_aggregate():
 
 
 # Runtime_test.cc:645-664 (TestWildcardSelect, row expansion count)
-def test_wildcard_row_expansion():
+def test_wildcard_row_expansion(reference_dir):
     r = run("select * from testtable;")
     assert r.num_columns == 63
     assert r.columns[0] == "attr.ab_test_group"
@@ -151,13 +151,13 @@ def test_wildcard_row_expansion():
 
 
 # Runtime_test.cc:666-685 (TestWildcardSelectWithOrderLimit)
-def test_wildcard_order_limit():
+def test_wildcard_order_limit(reference_dir):
     r = run("select * from testtable order by time desc limit 10;")
     assert r.num_columns == 63
     assert r.num_rows == 10
 
 
-def test_deep_within_record_aggregation():
+def test_deep_within_record_aggregation(reference_dir):
     """AGGREGATE_WITHIN_RECORD_DEEP emits one aggregated row per
     repeated-value step instead of one per record (reference:
     CSTableScan.cc:455-486; unreachable from SQL — the planner only

@@ -39,20 +39,20 @@ def customers_provider():
 
 
 # Runtime_test.cc:146-174 (TestColumnReferenceWithTableNamePrefix)
-def test_column_reference_with_prefix():
+def test_column_reference_with_prefix(reference_dir):
     r = run("select testtable.time from testtable;", cst_provider())
     assert r.num_columns == 1
     assert r.num_rows == 213
 
 
 # Runtime_test.cc:175-192 (TestSimpleCSTableAggregate)
-def test_simple_cstable_aggregate():
+def test_simple_cstable_aggregate(reference_dir):
     r = run("select count(1) from testtable;", cst_provider())
     assert r.get_row(0) == ["213"]
 
 
 # Runtime_test.cc:1431-1457 (TestSimpleSelect)
-def test_simple_select_order():
+def test_simple_select_order(reference_dir):
     r = run(
         "SELECT customername FROM customers ORDER BY customername;",
         customers_provider(),
@@ -88,7 +88,7 @@ def test_wildcard_on_subselect():
 
 
 # Runtime_test.cc:1504-1523 (TestSubqueryInGroupBy)
-def test_subquery_in_group_by():
+def test_subquery_in_group_by(reference_dir):
     r = run(
         "select count(1), t1.fubar + t1.x from (select count(1) as x, 123 as"
         " fubar from testtable group by TRUNCATE(time / 2000000)) t1 GROUP BY"
@@ -103,7 +103,7 @@ def test_subquery_in_group_by():
 
 
 # Runtime_test.cc:1525-1540 (TestInternalOrderByWithSubquery)
-def test_internal_order_by_with_subquery():
+def test_internal_order_by_with_subquery(reference_dir):
     r = run(
         "select t1.x from (select count(1) as x from testtable group by"
         " TRUNCATE(time / 2000000)) t1  order by t1.x DESC LIMIT 2;",
@@ -114,14 +114,14 @@ def test_internal_order_by_with_subquery():
 
 
 # Runtime_test.cc:1542-1562 (TestWildcardWithGroupBy)
-def test_wildcard_with_group_by():
+def test_wildcard_with_group_by(reference_dir):
     r = run("select * from testtable group by time;", csv1_provider())
     assert r.columns == ["time", "value", "segment1", "segment2"]
     assert r.num_rows == 4
 
 
 # Runtime_test.cc:687-750 (TestWildcardSelectWithSubqueries, CSV part)
-def test_wildcard_select_with_subqueries():
+def test_wildcard_select_with_subqueries(reference_dir):
     p = csv1_provider()
     r = run("select value, time from testtable;", p)
     assert r.columns == ["value", "time"]
@@ -143,7 +143,7 @@ def test_wildcard_select_with_subqueries():
 
 
 # Runtime_test.cc:752-771 (TestSelectWithInternalAggrGroupColumns)
-def test_internal_aggr_group_columns():
+def test_internal_aggr_group_columns(reference_dir):
     r = run(
         "select count(1) cnt, time from testtable group by"
         " TRUNCATE(time / 60000000) order by cnt desc;",
@@ -159,7 +159,7 @@ def test_internal_aggr_group_columns():
 
 
 # Runtime_test.cc:773-791 (TestSelectWithInternalGroupColumns)
-def test_internal_group_columns():
+def test_internal_group_columns(reference_dir):
     r = run(
         "select time from testtable group by TRUNCATE(time / 60000000);",
         cst_provider(),
@@ -169,7 +169,7 @@ def test_internal_group_columns():
 
 
 # Runtime_test.cc:792-810 (TestSelectWithInternalOrderColumns)
-def test_internal_order_columns():
+def test_internal_order_columns(reference_dir):
     r = run(
         "select user_id from testtable order by time desc limit 10;",
         cst_provider(),
@@ -179,7 +179,7 @@ def test_internal_order_columns():
 
 
 # Runtime_test.cc:1564-1678 (TestInnerJoin)
-def test_inner_join_cartesian():
+def test_inner_join_cartesian(reference_dir):
     q = """
         SELECT
           t1.time, t2.time, t3.time, t1.x, t2.x, t1.x + t2.x, t1.x * 3 = t3.x, x1, x2, x3
@@ -209,7 +209,7 @@ JOIN_EXPECT_LAST = [
 ]
 
 
-def test_inner_join_on():
+def test_inner_join_on(reference_dir):
     q = """
         SELECT
           t1.time, t2.time, t3.time, t1.x, t2.x, t1.x + t2.x, t1.x * 3 = t3.x, x1, x2, x3
@@ -231,7 +231,7 @@ def test_inner_join_on():
     assert r.get_row(11) == JOIN_EXPECT_LAST
 
 
-def test_inner_join_where():
+def test_inner_join_where(reference_dir):
     q = """
         SELECT
           t1.time, t2.time, t3.time, t1.x, t2.x, t1.x + t2.x, t1.x * 3 = t3.x, x1, x2, x3
@@ -254,7 +254,7 @@ def test_inner_join_where():
 
 
 # Runtime_test.cc:2314-2336 (TestSumMinMaxCount)
-def test_sum_min_max_count():
+def test_sum_min_max_count(reference_dir):
     r = run(
         "select sum(value), count(value), min(value), max(value) FROM testtable;",
         csv1_provider(),
@@ -265,13 +265,13 @@ def test_sum_min_max_count():
 
 
 # Runtime_test.cc:2120-2152 (TestShowTables) — structural check
-def test_show_tables():
+def test_show_tables(reference_dir):
     r = run("show tables;", cst_provider())
     assert r.columns == ["table_name", "description"]
     assert r.get_row(0)[0] == "testtable"
 
 
-def test_describe_table():
+def test_describe_table(reference_dir):
     r = run("describe testtable;", csv1_provider())
     assert r.columns == ["column_name", "type", "nullable", "description"]
     assert r.num_rows == 4
@@ -322,7 +322,7 @@ def _orders_provider():
     )
 
 
-def test_natural_join():
+def test_natural_join(reference_dir):
     r = run(
         "SELECT * FROM departments NATURAL JOIN users ORDER BY name;",
         _dept_provider(),
@@ -335,7 +335,7 @@ def test_natural_join():
     ]
 
 
-def test_natural_join_three_tables():
+def test_natural_join_three_tables(reference_dir):
     r = run(
         "SELECT * FROM departments NATURAL JOIN openinghours"
         " NATURAL JOIN users ORDER BY name;",
@@ -355,7 +355,7 @@ def test_natural_join_three_tables():
     ]
 
 
-def test_natural_join_subqueries():
+def test_natural_join_subqueries(reference_dir):
     # Runtime_test.cc:2084-2121 (TestNaturalJoin, aliased subquery case)
     r = run(
         "SELECT * FROM (SELECT * FROM departments) t1"
@@ -378,7 +378,7 @@ def test_natural_join_subqueries():
     ]
 
 
-def test_cross_join_limit_cursor():
+def test_cross_join_limit_cursor(reference_dir):
     # Runtime_test.cc:2200-2233 (TestResultCursor): ON-less JOIN is a
     # cross join; the cursor pulls exactly LIMIT rows
     r = run(
@@ -388,7 +388,7 @@ def test_cross_join_limit_cursor():
     assert r.num_rows == 5
 
 
-def test_right_join():
+def test_right_join(reference_dir):
     r = run(
         "SELECT orders.orderid, employees.firstname FROM orders"
         " RIGHT JOIN employees ON orders.employeeid=employees.employeeid"
@@ -403,7 +403,7 @@ def test_right_join():
     assert r.get_row(196) == ["NULL", "Adam"]
 
 
-def test_right_join_with_where():
+def test_right_join_with_where(reference_dir):
     r = run(
         "SELECT orders.orderid, employees.firstname FROM orders"
         " RIGHT JOIN employees ON orders.employeeid=employees.employeeid"
@@ -417,7 +417,7 @@ def test_right_join_with_where():
     assert r.get_row(10) == ["10397", "Steven"]
 
 
-def test_wildcard_join_on():
+def test_wildcard_join_on(reference_dir):
     r = run(
         "SELECT * FROM departments JOIN users"
         " ON users.deptid = departments.deptid ORDER BY name;",
@@ -428,7 +428,7 @@ def test_wildcard_join_on():
     assert r.num_rows == 3
 
 
-def test_wildcard_cross_join_where():
+def test_wildcard_cross_join_where(reference_dir):
     r = run(
         "SELECT * FROM departments, users, openinghours"
         " WHERE users.deptid = departments.deptid"
@@ -440,7 +440,7 @@ def test_wildcard_cross_join_where():
     assert r.num_rows == 3
 
 
-def test_wildcard_join_subselect():
+def test_wildcard_join_subselect(reference_dir):
     r = run(
         "SELECT * FROM ("
         " SELECT * FROM departments, users, openinghours"
@@ -453,8 +453,8 @@ def test_wildcard_join_subselect():
     assert r.num_rows == 3
 
 
-def test_operator_trace(monkeypatch):
-    """Per-operator timing trace (a TPU-build addition; SURVEY §5 notes
+def test_operator_trace(monkeypatch, reference_dir):
+    """Per-operator timing trace (this engine's addition; SURVEY §5 notes
     the reference has no tracer). Pinned to the host path: the device
     top-k route legitimately fuses OrderBy+Limit into one traced op."""
     from eventql_tpu.exec.runtime import Runtime
@@ -493,7 +493,7 @@ def _customers_orders_provider():
     )
 
 
-def test_left_join():
+def test_left_join(reference_dir):
     # reference: Runtime_test.cc:1679-1741 (TestLeftJoin)
     r = run(
         "SELECT customers.customername, orders.orderid"
@@ -522,7 +522,7 @@ def test_left_join():
     assert r.get_row(12) == ["Seven Seas Imports", "10388"]
 
 
-def test_table_names_with_dots():
+def test_table_names_with_dots(reference_dir):
     # reference: Runtime_test.cc:461-530 (TestTableNamesWithDots)
     for quote in ("'", "`"):
         r = run(
@@ -534,7 +534,7 @@ def test_table_names_with_dots():
         assert r.get_row(0) == ["213"]
 
 
-def test_select_invalid_column_error():
+def test_select_invalid_column_error(reference_dir):
     # reference: Runtime_test.cc:571-586 (TestSelectInvalidColumn)
     import pytest as _pytest
 
@@ -604,7 +604,7 @@ def test_order_by_aggregate_expression():
         )
 
 
-def test_explain_renders_plan():
+def test_explain_renders_plan(reference_dir):
     """EXPLAIN <select> renders the logical plan (the reference parses
     EXPLAIN — parser.cc:914 — but has no planner/executor for it; this
     build renders the real tree)."""

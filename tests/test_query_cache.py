@@ -11,7 +11,7 @@ TESTTBL_CST = reference_path("test", "sql_testdata", "testtbl.cst")
 QUERY = "select count(1) cnt, time from testtable group by TRUNCATE(time / 60000000) order by cnt desc;"
 
 
-def test_cache_hit_produces_same_result(tmp_path):
+def test_cache_hit_produces_same_result(tmp_path, reference_dir):
     cache = QueryCache(str(tmp_path / "qcache"))
     rt = Runtime()
 
@@ -33,7 +33,7 @@ def test_cache_hit_produces_same_result(tmp_path):
     assert warm.rows == cold.rows
 
 
-def test_cache_keyed_by_query(tmp_path):
+def test_cache_keyed_by_query(tmp_path, reference_dir):
     cache = QueryCache(str(tmp_path / "qcache"))
     rt = Runtime()
     txn = rt.new_transaction(

@@ -81,7 +81,7 @@ def test_trim_expr(expr, expected):
 
 # Runtime_test.cc:2153-2183 (TestDescribeTable) — tab-separated CSV
 # provider; describe emits (column_name, type, nullable, description).
-def test_describe_table_tab_separated_csv():
+def test_describe_table_tab_separated_csv(reference_dir):
     prov = CSVTableProvider(
         "departments",
         reference_path("test", "sql_testdata", "testtbl5.csv"),
@@ -98,7 +98,7 @@ def test_describe_table_tab_separated_csv():
 
 # A str separator must behave identically to bytes (regression: it was
 # silently ignored, fusing the header into one column).
-def test_csv_provider_accepts_str_separator():
+def test_csv_provider_accepts_str_separator(reference_dir):
     prov = CSVTableProvider(
         "departments",
         reference_path("test", "sql_testdata", "testtbl5.csv"),

@@ -12,7 +12,7 @@ import numpy as np
 import pytest
 
 from eventql_tpu.parallel.distributed import (
-    distributed_pallas_sum_count,
+    distributed_bounded_sum_count,
     make_mesh,
     shard_table,
 )
@@ -39,7 +39,7 @@ def test_distributed_zipf_groupby_exact():
     assert counts_np.max() > 20 * n / K
 
     mask_d, gid_d, vals_d = shard_table(mesh, [mask, gid, values])
-    counts, sums = distributed_pallas_sum_count(mesh, mask_d, gid_d, vals_d, K)
+    counts, sums = distributed_bounded_sum_count(mesh, mask_d, gid_d, vals_d, K)
     counts, sums = np.asarray(counts), np.asarray(sums)
 
     exp_counts = np.zeros(K, np.uint64)
