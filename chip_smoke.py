@@ -142,7 +142,7 @@ def load_tables(http_port: int, native_port: int, rows: int, dims,
     return time.perf_counter() - t0
 
 
-# (name, sql, float columns compared within 1e-12 relative)
+# (name, sql, float columns compared within F64_RTOL relative)
 QUERIES = [
     ("groupby_fused",
      "select event_type, count(1), sum(v) from events where v < 512"
@@ -174,26 +174,53 @@ QUERIES = [
 HTTP_QUERY = "groupby_fused"
 
 
-def rows_match(a, b, float_cols=()) -> bool:
-    """Exact row equality; in `float_cols`, values may differ by a
-    relative 1e-12 (device atomics and scans add in another order than
-    the host) plus one unit in the last printed digit (two values that
-    close can round to neighbouring printed decimals)."""
+F64_RTOL = 1e-12  # device atomics and scans add in another order
+
+
+def row_difference(a, b, float_cols=()):
+    """None when the printed rows `a` and `b` match, else the first
+    difference. Equality is exact except in `float_cols`, where the
+    printed values may differ by F64_RTOL relative plus one unit in the
+    last printed digit: two doubles that close can round to
+    neighbouring printed decimals (`f64_difference` checks the
+    unrounded values)."""
     if len(a) != len(b):
-        return False
-    for ra, rb in zip(a, b):
+        return f"{len(a)} rows against {len(b)}"
+    for r, (ra, rb) in enumerate(zip(a, b)):
         if len(ra) != len(rb):
-            return False
+            return f"row {r}: {ra} against {rb}"
         for i, (x, y) in enumerate(zip(ra, rb)):
             if x == y:
                 continue
             if i not in float_cols:
-                return False
+                return f"row {r}: {ra} against {rb}"
             fx, fy = float(x), float(y)
-            decimals = len(x.partition(".")[2])
-            if abs(fx - fy) > 1e-12 * max(abs(fx), abs(fy)) + 10.0 ** -decimals:
-                return False
-    return True
+            unit = 10.0 ** -len(x.partition(".")[2])
+            if abs(fx - fy) > F64_RTOL * max(abs(fx), abs(fy)) + unit:
+                return (f"row {r} column {i}: {x} against {y}, "
+                        f"gap {abs(fx - fy)!r}")
+    return None
+
+
+def f64_difference(dev, host):
+    """(largest relative gap, first difference over F64_RTOL or None)
+    between two lists of unrounded f64 result columns."""
+    import numpy as np
+
+    worst = 0.0
+    for i, (d, h) in enumerate(zip(dev, host)):
+        if d.shape != h.shape:
+            return worst, f"column {i}: {d.shape} rows against {h.shape}"
+        scale = np.maximum(np.abs(d), np.abs(h))
+        gap = np.abs(d - h)
+        rel = np.divide(gap, scale, out=np.zeros_like(gap), where=scale > 0)
+        bad = np.flatnonzero(rel > F64_RTOL)
+        if bad.size:
+            r = bad[0]
+            return worst, (f"column {i} row {r}: {d[r]!r} against {h[r]!r}, "
+                           f"relative gap {rel[r]!r}")
+        worst = max(worst, float(rel.max(initial=0.0)))
+    return worst, None
 
 
 class _host_engine:
@@ -209,6 +236,28 @@ class _host_engine:
             os.environ.pop("EVENTQL_TPU_DEVICE")
         else:
             os.environ["EVENTQL_TPU_DEVICE"] = self.prev
+
+
+def _f64_check(server, name, sql, float_cols) -> float:
+    """Run `sql` in the server's engine on the device routes and on the
+    host engine and compare the unformatted f64 columns `float_cols`;
+    returns the largest relative gap."""
+    import numpy as np
+
+    def columns():
+        rt = server.runtime
+        txn = rt.new_transaction(server.query_provider_factory())
+        rel = rt.execute_query(txn, sql)[0].relation
+        return [np.asarray(rel.columns[i].data, np.float64)
+                for i in float_cols]
+
+    dev = columns()
+    with _host_engine():
+        host = columns()
+    worst, diff = f64_difference(dev, host)
+    if diff is not None:
+        raise RuntimeError(f"{name}: device f64 differs from host: {diff}")
+    return worst
 
 
 def _device_counter() -> int:
@@ -247,10 +296,16 @@ def server_phase(rows: int = EVENT_ROWS, dims=DIM_ROWS, seed: int = 0,
                     t0 = time.perf_counter()
                     host = client.query(sql)[0][1]
                     host_s = time.perf_counter() - t0
-                if not rows_match(dev, host, float_cols):
+                diff = row_difference(dev, host, float_cols)
+                if diff is not None:
                     raise RuntimeError(
-                        f"{name}: device rows differ from host rows\n"
-                        f"device {dev[:5]}\nhost {host[:5]}")
+                        f"{name}: device rows differ from host rows: {diff}")
+                if float_cols:
+                    worst = _f64_check(daemon.server, name, sql, float_cols)
+                    printed = sum(ra != rb for ra, rb in zip(dev, host))
+                    log(f"{name}: f64 largest relative gap {worst!r} "
+                        f"(limit {F64_RTOL!r}); printed rows that differ "
+                        f"{printed}")
                 results[name] = {
                     "first_s": times[0],
                     "warm_p50_s": statistics.median(times[1:]),
@@ -268,8 +323,9 @@ def server_phase(rows: int = EVENT_ROWS, dims=DIM_ROWS, seed: int = 0,
         with _host_engine():
             host = _http(daemon.http_port, "/api/v1/sql", {"query": sql})
         dev_rows = dev["results"][0]["rows"]
-        if dev_rows != host["results"][0]["rows"]:
-            raise RuntimeError("HTTP: device rows differ from host rows")
+        diff = row_difference(dev_rows, host["results"][0]["rows"])
+        if diff is not None:
+            raise RuntimeError(f"HTTP: device rows differ from host rows: {diff}")
         log(f"http {HTTP_QUERY}: rows={len(dev_rows)} match=yes")
 
         stats = _http(daemon.http_port, "/eventql/stats")
@@ -520,8 +576,6 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--four", action="store_true",
                     help="run the mesh SQL path on four cards, nothing else")
-    ap.add_argument("--skip-tests", action="store_true",
-                    help="skip phase 1 (the gpu-marked tests)")
     args = ap.parse_args(argv)
 
     try:
@@ -532,7 +586,7 @@ def main(argv=None) -> int:
     from eventql_tpu.utils.device_info import card_line, hbm_bytes_per_s
 
     card = card_line()
-    if not args.four and not args.skip_tests:
+    if not args.four:
         gpu_tests_phase()
 
     import jax

@@ -62,6 +62,11 @@ class ResultList:
         yield from self._format_window(lo, hi)
 
     @property
+    def relation(self) -> Optional[Relation]:
+        """The unformatted result, or None when it was built from rows."""
+        return self._rel
+
+    @property
     def num_columns(self) -> int:
         return len(self.columns)
 

@@ -24,7 +24,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     ([["x", "1"]], [["x", "1"], ["y", "2"]], (), False),
 ])
 def test_rows_match(a, b, cols, want):
-    assert chip_smoke.rows_match(a, b, cols) is want
+    assert (chip_smoke.row_difference(a, b, cols) is None) is want
 
 
 def test_server_phase_tiny(monkeypatch):
@@ -54,14 +54,40 @@ def _last_line_ok(stdout: str) -> bool:
         return False
 
 
-def test_fails_without_gpu():
-    env = dict(os.environ, JAX_PLATFORMS="cpu")
-    r = subprocess.run(
-        [sys.executable, "chip_smoke.py", "--skip-tests"], cwd=ROOT,
-        env=env, capture_output=True, text=True, timeout=300,
-    )
-    assert r.returncode != 0
-    assert not _last_line_ok(r.stdout)
+def test_row_difference_names_the_row():
+    diff = chip_smoke.row_difference(
+        [["x", "1"], ["y", "9373.142859"]],
+        [["x", "1"], ["y", "9373.142857"]], (1,))
+    assert diff.startswith("row 1 column 1: 9373.142859 against 9373.142857")
+
+
+@pytest.mark.parametrize("dev,host,ok", [
+    ([1.0, 2334.0], [1.0, 2334.0], True),
+    ([1.0, 2334.0], [1.0, 2334.0 * (1 + 1e-13)], True),
+    ([1.0, 2334.0], [1.0, 2334.0 * (1 + 1e-11)], False),
+    ([0.0, 0.0], [0.0, 0.0], True),
+])
+def test_f64_difference(dev, host, ok):
+    import numpy as np
+
+    worst, diff = chip_smoke.f64_difference([np.array(dev)], [np.array(host)])
+    assert (diff is None) is ok
+    if ok:
+        assert worst <= chip_smoke.F64_RTOL
+    else:
+        assert diff.startswith("column 0 row 1:")
+
+
+def test_fails_without_gpu(monkeypatch, capsys):
+    """On the CPU backend main() stops at the GPU check, after phase 1
+    and the card line (both stubbed here), and prints no result."""
+    from eventql_tpu.utils import device_info
+
+    monkeypatch.setattr(device_info, "card_line", lambda: "stub card")
+    monkeypatch.setattr(chip_smoke, "gpu_tests_phase", lambda: None)
+    with pytest.raises(RuntimeError, match="a GPU run was requested"):
+        chip_smoke.main([])
+    assert '"ok"' not in capsys.readouterr().out
 
 
 def test_fails_alone(tmp_path):
